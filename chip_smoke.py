@@ -17,9 +17,15 @@ Phases (any failure raises, and the exit code is then non-zero):
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
     token), run `RollupEngine(...).run` on the card, hold the hash, roots
     and newLastIdx exactly against the builder, and require that every
-    kernel was launched during that run;
+    kernel of that path (kernels.MAIN_PATH) was launched during that run;
  5. tamper one lane's signature scalar and require ok == False;
- 6. time the host build, pack, first call and steady state.
+ 6. time the host build, pack, first call and steady state;
+ 7. the full-round experiment (Poseidon t=3 full rounds, K5 with the MDS
+    mix on the CUDA cores, K6 with it on the tensor cores): each kernel
+    exactly against its plain version at 1000 lanes x 3 rounds and at
+    65536 x 16 (timed), both against the bigint mirror and each other;
+    then its entry point `circuits_tpu_torch.scripts.exp_mxu_inkernel`
+    at 65536 x 16, which must launch both kernels.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -32,7 +38,6 @@ import json
 import os
 import random
 import statistics
-import subprocess
 import sys
 import time
 
@@ -46,7 +51,9 @@ from circuits_tpu_torch.field import fr  # noqa: E402
 from circuits_tpu_torch.host import (SMT, HermezAccount, RollupDB,  # noqa: E402
                                      babyjub, float40, poseidon_constants,
                                      scalar)
-from circuits_tpu_torch.ops import babyjubjub, poseidon, sha256, smt  # noqa: E402
+from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
+                                    poseidon_rounds, sha256, smt)
+from circuits_tpu_torch.scripts import exp_mxu_inkernel  # noqa: E402
 
 LANES = 1000
 N_LEVELS = 32
@@ -60,15 +67,13 @@ SOURCES = {
                     "circuits_tpu/ops/pallas_eddsa.py:268"),
     "sha256_chain": ("circuits_tpu_torch/csrc/sha256.cu",
                      "circuits_tpu/ops/pallas_sha256.py:92"),
+    "poseidon_rounds_vpu": ("circuits_tpu_torch/csrc/poseidon_rounds.cu",
+                            "scripts/exp_mxu_inkernel.py:230"),
+    "poseidon_rounds_mxu": ("circuits_tpu_torch/csrc/poseidon_rounds.cu",
+                            "scripts/exp_mxu_inkernel.py:220"),
 }
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True)
-    return res.stdout.strip().splitlines()[0]
+# the full-round experiment at the JAX script's defaults
+EXP_LANES, EXP_ROUNDS = 65536, 16
 
 
 def sync():
@@ -290,6 +295,43 @@ def check_sha(dev, rng):
         assert digest == hashlib.sha256(msg).digest(), "SHA-256 != hashlib"
 
 
+def check_full_rounds(dev, rng):
+    """K5 and K6 against their plain versions, the bigint mirror and each
+    other; then the experiment's entry point with the counts from 0.
+    Returns the launches of that run."""
+    for lanes, rounds in ((LANES, 3), (EXP_LANES, EXP_ROUNDS)):
+        state, vals = exp_mxu_inkernel.random_state(lanes)
+        x = state.to(dev)
+        timed = lanes == EXP_LANES
+        outs = [compare(name, f"R={rounds} B={lanes}",
+                        lambda fn=fn: fn(x, rounds),
+                        lambda plain=plain: plain(x, rounds), 10, timed)
+                for name, fn, plain in (
+                    ("poseidon_rounds_vpu", poseidon_rounds.full_rounds_vpu,
+                     poseidon_rounds.full_rounds_vpu_plain),
+                    ("poseidon_rounds_mxu", poseidon_rounds.full_rounds_mxu,
+                     poseidon_rounds.full_rounds_mxu_plain))]
+        assert torch.equal(outs[0], outs[1]), "K5 and K6 differ"
+        got = fr.unpack_np(outs[0])
+        sample = {0, 777, lanes - 1} | set(rng.sample(range(lanes), 29))
+        for lane in sorted(sample):
+            want = poseidon_rounds.full_rounds_py(
+                [vals[e][lane] for e in range(3)], rounds)
+            assert [int(got[e, lane]) for e in range(3)] == want, \
+                f"lane {lane} differs from the bigint mirror"
+        print(f"  K5 == K6 == bigint mirror on {len(sample)} lanes "
+              f"(R={rounds} B={lanes})", flush=True)
+    kernels.reset_launches()
+    exp_mxu_inkernel.run(EXP_LANES, EXP_ROUNDS, dev)
+    launches = {k: kernels.launches[k]
+                for k in ("poseidon_rounds_vpu", "poseidon_rounds_mxu")}
+    print(f"exp_mxu_inkernel({EXP_LANES}, {EXP_ROUNDS}): launches={launches}",
+          flush=True)
+    for name, count in launches.items():
+        assert count > 0, f"kernel {name} was not launched by its path"
+    return launches
+
+
 def production_batch(n_tx, n_levels, max_l1, max_fee):
     """The scripts/exp_production.py recipe: populate n_tx accounts with
     L1 deposits, then one batch of n_tx signed L2 transfers (a ring) with
@@ -323,7 +365,7 @@ def main() -> None:
     # 1 - the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    card = card_line()
+    card = exp_mxu_inkernel.card_line()
     print(f"card: {card}", flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device "
@@ -372,8 +414,9 @@ def main() -> None:
     assert out["new_exit_root"] == bb.get_new_exit_root()
     assert out["new_last_idx"] == bb.get_new_last_idx()
     print("hashGlobalInputs, roots, newLastIdx: EXACT vs builder", flush=True)
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched by the main path"
+    for name in kernels.MAIN_PATH:
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched by the main path"
 
     # 5 - a tampered signature scalar flips the verdict
     bad = dict(inp)
@@ -398,6 +441,10 @@ def main() -> None:
           f"first call {t_first:.3f} s, steady state median "
           f"{steady:.4f} s over 5 runs {['%.4f' % r for r in reps]} "
           f"({n_tx / steady:.1f} tx/s)", flush=True)
+
+    # 7 - the full-round experiment
+    print("full-round experiment (exact):", flush=True)
+    launches.update(check_full_rounds(dev, rng))
 
     rows = []
     for name, (source, replaces) in SOURCES.items():

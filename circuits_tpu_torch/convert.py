@@ -67,6 +67,85 @@ def poseidon_kernel_words() -> np.ndarray:
     return np.array(rows, dtype=np.uint32)
 
 
+ROUNDS_T = 3  # the full-round experiment's Poseidon width
+
+
+@lru_cache(maxsize=None)
+def rounds_tables():
+    """The full-round experiment's constants as Montgomery limbs: CF
+    (8, 3, 16), the optimized schedule's `full_c` (round r uses CF[r % 8]),
+    and M (3, 3, 16), the MDS matrix (M[i][j] multiplies state[j] into
+    new[i]). uint32."""
+    oc = poseidon_constants.optimized_constants(ROUNDS_T)
+    cf = np.array([[_mont_limbs(v) for v in row] for row in oc["full_c"]],
+                  dtype=np.uint32)
+    m = np.array([[_mont_limbs(v) for v in row] for row in oc["m"]],
+                 dtype=np.uint32)
+    return cf, m
+
+
+@lru_cache(maxsize=None)
+def rounds_kernel_words() -> np.ndarray:
+    """K5/K6's constant block (33, 8) uint32: the 8 x 3 `full_c` elements
+    (round-major) then the 3 x 3 MDS matrix (row major), each element 8
+    Montgomery words. Layout must match ROUNDS_K in
+    csrc/poseidon_rounds.cu."""
+    cf, m = rounds_tables()
+    return limbs_to_words(np.concatenate(
+        [cf.reshape(-1, N_LIMBS), m.reshape(-1, N_LIMBS)]))
+
+
+def _bytes_of(x: int, n: int = 32) -> list[int]:
+    return [(x >> (8 * i)) & 0xFF for i in range(n)]
+
+
+@lru_cache(maxsize=None)
+def mix_matrices():
+    """The banded byte matrices of K6's MDS mix and Montgomery reduction,
+    uint8, every entry one byte of a constant:
+
+    * Wm (3*64, 3*32): row e*64 + k, column j*32 + i. Times the byte
+      columns X[j*32 + i] = byte i of state[j], it gives the 64 base-256
+      columns of T_e = sum_j M[e][j] * state[j] (before carries).
+    * Wn (32, 32): Wn[k, i] = byte k - i of N' = -p^-1 mod 2^256; times
+      the low 32 bytes of T it gives the columns of q = lo * N' mod 2^256.
+    * Wp (65, 32): Wp[i + k, i] = byte k of p; times q's bytes it gives
+      the columns of q * p. Rows 63 and 64 are zero.
+    """
+    t = ROUNDS_T
+    m = poseidon_constants.optimized_constants(t)["m"]
+    wm = np.zeros((t * 64, t * 32), dtype=np.uint8)
+    for e in range(t):
+        for j in range(t):
+            mb = _bytes_of((m[e][j] * scalar.R) % scalar.P)
+            for i in range(32):
+                wm[e * 64 + i:e * 64 + i + 32, j * 32 + i] = mb
+    n_prime = (-pow(scalar.P, -1, 1 << 256)) % (1 << 256)
+    wn = np.zeros((32, 32), dtype=np.uint8)
+    wp = np.zeros((65, 32), dtype=np.uint8)
+    nb, pb = _bytes_of(n_prime), _bytes_of(scalar.P)
+    for i in range(32):
+        wn[i:, i] = nb[:32 - i]
+        wp[i:i + 32, i] = pb
+    return wm, wn, wp
+
+
+def rounds_state_from_jax(x) -> torch.Tensor:
+    """The experiment's JAX state (3, 16, S, 128) uint32 -> the port's
+    (16, 3, B) int64, lane l = s * 128 + j at (s, j)."""
+    x = np.asarray(x)
+    t, n = x.shape[:2]
+    flat = x.reshape(t, n, -1).transpose(1, 0, 2).astype(np.int64)
+    return torch.from_numpy(np.ascontiguousarray(flat))
+
+
+def rounds_state_to_jax(state: torch.Tensor, lanes: int = 128) -> np.ndarray:
+    """The port's (16, 3, B) state -> JAX's (3, 16, B / lanes, lanes)
+    uint32."""
+    a = state.detach().cpu().numpy().astype(np.uint32).transpose(1, 0, 2)
+    return np.ascontiguousarray(a.reshape(a.shape[:2] + (-1, lanes)))
+
+
 def _first_primes(n: int) -> list[int]:
     out, k = [], 2
     while len(out) < n:

@@ -131,6 +131,14 @@ __device__ __forceinline__ void fr_mont_mul(uint32_t r[8], const uint32_t a[8],
   fr_reduce_once(r, t, t[8]);
 }
 
+// x = x^5 (the Poseidon S-box), Montgomery in and out.
+__device__ __forceinline__ void fr_pow5(uint32_t x[8]) {
+  uint32_t x2[8], x4[8];
+  fr_mont_mul(x2, x, x);
+  fr_mont_mul(x4, x2, x2);
+  fr_mont_mul(x, x4, x);
+}
+
 __device__ __forceinline__ bool fr_eq(const uint32_t a[8], const uint32_t b[8]) {
   uint32_t acc = 0;
 #pragma unroll

@@ -44,13 +44,6 @@ static inline int poseidon_upload(const uint32_t* host_words, int n_elems) {
   return (int)err;
 }
 
-__device__ __forceinline__ void fr_pow5(uint32_t x[8]) {
-  uint32_t x2[8], x4[8];
-  fr_mont_mul(x2, x, x);
-  fr_mont_mul(x4, x2, x2);
-  fr_mont_mul(x, x4, x);
-}
-
 template <int T>
 __device__ __forceinline__ void poseidon_permute(uint32_t s[T][8]) {
   constexpr int RP = poseidon_rp(T);

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/).
 
-The four kernels are compiled by `nvcc` for `sm_90a` into ONE shared
+The kernels are compiled by `nvcc` for `sm_90a` into ONE shared
 library with a plain C interface and loaded with `ctypes` -- no PyTorch
 headers, so a build takes seconds. The library is built at first use into
 `build/` at the repository root, named by a hash of the sources, so an
@@ -25,13 +25,18 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("poseidon.cu", "smt.cu", "eddsa.cu", "sha256.cu")
+SOURCES = ("poseidon.cu", "smt.cu", "eddsa.cu", "sha256.cu",
+           "poseidon_rounds.cu")
 HEADERS = ("field.cuh", "poseidon.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> launches made by its wrapper; reset with reset_launches()
 launches = {"poseidon_permute": 0, "smt_chain": 0, "eddsa_check": 0,
-            "sha256_chain": 0}
+            "sha256_chain": 0, "poseidon_rounds_vpu": 0,
+            "poseidon_rounds_mxu": 0}
+# the kernels that RollupEngine.run launches; the other two belong to the
+# full-round experiment (circuits_tpu_torch/scripts/exp_mxu_inkernel.py)
+MAIN_PATH = ("poseidon_permute", "smt_chain", "eddsa_check", "sha256_chain")
 
 _lib = None
 _initialised_devices: set[int] = set()
@@ -93,6 +98,9 @@ def lib() -> ctypes.CDLL:
             "ctpu_smt_chain": [P, P, P, P, P, P, P, I, L, P],
             "ctpu_eddsa_check": [P, P, P, P, P, P, P, P, L, P],
             "ctpu_sha256_chain": [P, P, I, L, P],
+            "ctpu_rounds_init": [P, I],
+            "ctpu_rounds_vpu": [P, P, I, L, P],
+            "ctpu_rounds_mxu": [P, P, P, P, P, I, L, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(so, name)
@@ -110,7 +118,7 @@ def _check(rc: int, what: str) -> None:
 def prepare(device: torch.device) -> ctypes.CDLL:
     """The library, with the Poseidon constants uploaded to `device`'s
     __constant__ banks (once per device and process)."""
-    from .convert import poseidon_kernel_words
+    from .convert import poseidon_kernel_words, rounds_kernel_words
 
     so = lib()
     index = device.index if device.index is not None else \
@@ -122,6 +130,9 @@ def prepare(device: torch.device) -> ctypes.CDLL:
             _check(so.ctpu_poseidon_init(ptr, words.shape[0]),
                    "ctpu_poseidon_init")
             _check(so.ctpu_smt_init(ptr, words.shape[0]), "ctpu_smt_init")
+            rw = np.ascontiguousarray(rounds_kernel_words())
+            _check(so.ctpu_rounds_init(rw.ctypes.data_as(ctypes.c_void_p),
+                                       rw.shape[0]), "ctpu_rounds_init")
         _initialised_devices.add(index)
     return so
 

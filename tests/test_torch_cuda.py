@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
 and the suite's batches through `RollupEngine` on `cuda`. These tests need a
 CUDA device and skip without one. They import no JAX, so they also run on a
 machine that has none:
@@ -17,7 +17,9 @@ from circuits_tpu_torch import kernels
 from circuits_tpu_torch.engine.witness import RollupEngine
 from circuits_tpu_torch.field import fr
 from circuits_tpu_torch.host import babyjub, scalar
-from circuits_tpu_torch.ops import babyjubjub, poseidon, sha256, smt
+from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
+                                    sha256, smt)
+from circuits_tpu_torch.scripts import exp_mxu_inkernel
 
 from torch_compare import (SUITE_CONFIG, assert_same, oracle_outputs,
                            suite_batches)
@@ -106,5 +108,21 @@ def test_engine_on_cuda_matches_builder_through_the_kernels(cuda):
         assert ok, name
         want = oracle_outputs(bb)
         assert {k: out[k] for k in want} == want, name
-        assert all(n > 0 for n in kernels.launches.values()), \
+        assert all(kernels.launches[k] > 0 for k in kernels.MAIN_PATH), \
             (name, kernels.launches)
+
+
+def test_full_round_kernels_match_plain_each_other_and_mirror(cuda):
+    rounds = 3
+    state, vals = exp_mxu_inkernel.random_state(LANES)
+    x = state.to(cuda)
+    vpu = poseidon_rounds.full_rounds_vpu(x, rounds)
+    mxu = poseidon_rounds.full_rounds_mxu(x, rounds)
+    assert_same(vpu, poseidon_rounds.full_rounds_vpu_plain(x, rounds))
+    assert_same(mxu, poseidon_rounds.full_rounds_mxu_plain(x, rounds))
+    assert_same(vpu, mxu)
+    got = fr.unpack_np(vpu)
+    for lane in (0, 151, LANES - 1):
+        want = poseidon_rounds.full_rounds_py(
+            [vals[e][lane] for e in range(3)], rounds)
+        assert [int(got[e, lane]) for e in range(3)] == want, lane
