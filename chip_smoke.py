@@ -5,19 +5,26 @@
 Phases (any failure raises, and the exit code is then non-zero):
  1. print the card (nvidia-smi name, power limit) and the torch/CUDA
     versions; refuse to run without CUDA;
- 2. build the kernels from circuits_tpu_torch/csrc with nvcc (sm_90a);
+ 2. build the kernels from circuits_tpu_torch/csrc with nvcc (sm_90a), one
+    nvcc a source, all at once; print each kernel's registers and spills
+    and the card's sustained rate of `fr_mont_mul` (csrc/mont_rate.cu),
+    the unit of the Poseidon, SMT and EdDSA kernels' bounds;
  3. check each kernel against its plain PyTorch version on the card,
-    exactly, at the main path's per-lane shapes and 1000 lanes (not a
-    multiple of the block size): K1 Poseidon t = 3..7, K2 SMT chain n = 33
-    on INSERT / UPDATE / DELETE / NOP lanes, K3 EdDSA on valid, tampered
-    and s >= 2^253 lanes, K4 SHA-256 at 1, 3 and 822 blocks (also against
-    hashlib); then again at the lane counts of the main path's calls at
-    RollupMain(2048, 32, 256, 64), where both versions are timed;
- 4. build a RollupMain(2048, 32, 256, 64) batch with the shared builder
+    exactly, at 1, 33 and 1000 lanes (no multiples of a thread group or a
+    block): K1 Poseidon t = 3..7, K2 SMT chain on INSERT / UPDATE / DELETE
+    / NOP lanes and on lanes that act at the root and at the bottom level,
+    K3 EdDSA on valid, tampered and s >= 2^253 lanes, K4 SHA-256 at 1, 3
+    and 822 blocks (also against hashlib); then again at the lane counts
+    of the main path's calls at RollupMain(2048, 32, 256, 64), where both
+    versions are timed;
+ 4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
     token), run `RollupEngine(...).run` on the card, hold the hash, roots
     and newLastIdx exactly against the builder, and require that every
     kernel of that path (kernels.MAIN_PATH) was launched during that run;
+    then record the arguments of that path's K1 and K2 calls in one more
+    run, and check and time K2 on the batch's own 4096-lane call, whose
+    masks give its bound;
  5. tamper one lane's signature scalar and require ok == False;
  6. time the host build, pack, first call and steady state;
  7. the full-round experiment (Poseidon t=3 full rounds, K5 with the MDS
@@ -27,17 +34,26 @@ Phases (any failure raises, and the exit code is then non-zero):
     then its entry point `circuits_tpu_torch.scripts.exp_mxu_inkernel`
     at 65536 x 16, which must launch both kernels.
 
+Each kernel's `bound_ms` is the larger of its bytes (every input read once,
+every output written once) over 3.35 TB/s and its operations over the
+card's rate for them: Montgomery products over the measured `fr_mont_mul`
+rate, K6's mix over the published 1,979 TOP/s int8, K4's serial chain of
+rounds over the card's clock. No PyTorch call computes any of the six
+functions, so `library_ms` is null in every row.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
 import random
 import statistics
+import subprocess
 import sys
 import time
 
@@ -47,15 +63,18 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from circuits_tpu_torch import kernels  # noqa: E402
 from circuits_tpu_torch.engine.witness import RollupEngine  # noqa: E402
-from circuits_tpu_torch.field import fr  # noqa: E402
-from circuits_tpu_torch.host import (SMT, HermezAccount, RollupDB,  # noqa: E402
-                                     babyjub, float40, poseidon_constants,
-                                     scalar)
+from circuits_tpu_torch.builder import babyjub, float40  # noqa: E402
+from circuits_tpu_torch.builder.account import HermezAccount  # noqa: E402
+from circuits_tpu_torch.builder.rollup_db import RollupDB  # noqa: E402
+from circuits_tpu_torch.builder.smt import SMT  # noqa: E402
+from circuits_tpu_torch.field import fr, scalar  # noqa: E402
 from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
-                                    poseidon_rounds, sha256, smt)
+                                    poseidon_constants, poseidon_rounds,
+                                    sha256, smt)
 from circuits_tpu_torch.scripts import exp_mxu_inkernel  # noqa: E402
 
 LANES = 1000
+RAGGED = (1, 33)  # lane counts below a warp's and a block's lanes
 N_LEVELS = 32
 SEED = 20261016
 SOURCES = {
@@ -74,6 +93,31 @@ SOURCES = {
 }
 # the full-round experiment at the JAX script's defaults
 EXP_LANES, EXP_ROUNDS = 65536, 16
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core peak, the same sheet
+# 32-bit multiply-add instruction slots of one fr_mont_mul
+# (csrc/field.cuh): 8 x (8 + 8) wide products and 8 low ones, with their
+# carry adds about 270
+MONT_MUL_SLOTS = 270
+INT32_LANES_PER_SM = 64
+# Montgomery products of K3 a lane (csrc/eddsa.cu): a 14-add table, 64
+# windows of 4 doublings (8) + a unified add (13) + a mixed add (12), the
+# last mixed add and the 4 products of the projective comparison
+EDDSA_PRODUCTS = 14 * 12 + 64 * (4 * 8 + 13 + 12) + 12 + 4
+SHA_BLOCKS = 822  # the HashInputs preimage at RollupMain(2048, 32, 256, 64)
+# a SHA-256 round's chain from e to the next e: Sigma1, two adds, d + T1
+SHA_DEPENDENT_OPS, ALU_LATENCY_CLOCKS = 4, 4
+
+
+def poseidon_products(t: int) -> int:
+    """Montgomery products of one permutation in the sparse schedule."""
+    rp = poseidon_constants.N_ROUNDS_P[t - 2]
+    return 8 * (t * t + 3 * t) + rp * (2 * t + 2)
+
+
+# Poseidon(2) of canonical inputs: to Montgomery form (2), permute, back (1)
+HASH2_PRODUCTS = poseidon_products(3) + 3
 
 
 def sync():
@@ -110,12 +154,28 @@ def max_err(a, b) -> int:
 
 
 results = {}
+rates = {}  # "mont_mul": products/s measured, "clock_hz": max SM clock
 
 
-def compare(name, note, kernel_fn, plain_fn, reps, timed=True):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops_s: float, moved_bytes: int):
+    """(bound_ms, bound_by): the larger of the operations' time `ops_s` and
+    the bytes' time at the card's memory rate."""
+    bytes_s = moved_bytes / HBM_BYTES_PER_S
+    if bytes_s > ops_s:
+        return bytes_s * 1e3, "bytes"
+    return ops_s * 1e3, "operations"
+
+
+def compare(name, note, kernel_fn, plain_fn, reps, timed=True, bound_of=None):
     """Hold the kernel's result against its plain version's, exactly, and
     time both when `timed`; the last timed shape of a kernel is the one
-    reported in the kernels line. Returns the kernel's result."""
+    reported in the kernels line, with `bound_of` = (seconds of its
+    operations at the card's rate, bytes it must move). Returns the
+    kernel's result."""
     got = kernel_fn()  # also the warm-up calls of both
     err = max_err(got, plain_fn())
     r = results.setdefault(name, dict(err=0, ms=None, plain_ms=None))
@@ -123,7 +183,10 @@ def compare(name, note, kernel_fn, plain_fn, reps, timed=True):
     line = f"  {name:17s} {note:36s} max_abs_err={err}"
     if timed:
         r["ms"], r["plain_ms"] = kernel_ms(kernel_fn, reps), plain_ms(plain_fn)
-        line += f" kernel={r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms"
+        r["bound_ms"], r["bound_by"] = bound(*bound_of)
+        line += (f" kernel={r['ms']:.4f} ms plain={r['plain_ms']:.1f} ms "
+                 f"bound={r['bound_ms']:.4f} ms ({r['bound_by']}; kernel "
+                 f"reaches {100 * r['bound_ms'] / r['ms']:.1f} % of it)")
     print(line, flush=True)
     if err != 0:
         raise AssertionError(f"{name} disagrees with its plain version "
@@ -141,17 +204,24 @@ def tile(x, lanes):
 # t=3 new1h and t=5 HashState pairs over 4096 lanes, t=4 SMT leaves over
 # 8192, t=6 EdDSA challenge and t=7 sigL2Hash over 2048
 POSEIDON_MAIN_PATH = [(3, 4096), (4, 8192), (5, 4096), (6, 2048), (7, 2048)]
+# lane counts that fill the card (more warps than a scheduler can hide
+# behind), to tell what the main path's small calls cost K1
+POSEIDON_FILLED = [(3, 65536), (7, 32768)]
 
 
 def check_poseidon(dev, rng):
-    for t, lanes in [(t, LANES) for t in range(3, 8)] + POSEIDON_MAIN_PATH:
+    shapes = [(t, lanes) for t in range(3, 8) for lanes in RAGGED + (LANES,)]
+    timed = POSEIDON_FILLED + POSEIDON_MAIN_PATH  # the last one is reported
+    for t, lanes in shapes + timed:
         vals = [[rng.randrange(scalar.P) for _ in range(lanes)]
                 for _ in range(t)]
         state = fr.pack(vals, dev).contiguous()  # (16, t, lanes), Mont.
+        products = poseidon_products(t) * lanes
         compare("poseidon_permute", f"t={t} B={lanes}",
                 lambda: poseidon.permute_mont(state),
                 lambda: poseidon.permute_mont_plain(state), 10,
-                timed=lanes != LANES)
+                timed=(t, lanes) in timed,
+                bound_of=(products / rates["mont_mul"], 2 * nbytes(state)))
     # and one hash against the host bigint Poseidon
     x = [rng.randrange(scalar.P) for _ in range(4)]
     h = poseidon.poseidon([fr.pack([v], dev) for v in x])
@@ -192,8 +262,35 @@ def _smt_lanes(rng, n_levels):
     return ops, n
 
 
-def check_smt(dev, rng):
-    ops, n = _smt_lanes(rng, N_LEVELS)
+def _smt_edge_lanes(rng, n_levels):
+    """33 proofs on a shallow tree: lane 0 inserts into the empty tree (it
+    acts at the root), lane 1 inserts a key that shares all but its last
+    path bit with lane 0's, so the old leaf is pushed down to the bottom
+    level; then inserts, updates and deletes."""
+    tree = SMT()
+    deep = 1 + (1 << (n_levels - 1))
+    keys = [1, deep] + rng.sample(
+        [k for k in range(2, 1 << n_levels) if k != deep], 14)
+    ops = []
+    for k in keys:
+        pr = tree.insert(k, rng.randrange(scalar.P))
+        pr["fnc"] = (1, 0)
+        ops.append(pr)
+    for k in rng.sample(keys, 9):
+        pr = tree.update(k, rng.randrange(scalar.P))
+        pr["fnc"] = (0, 1)
+        ops.append(pr)
+    for k in rng.sample(keys, 8):
+        pr = tree.delete(k)
+        pr["fnc"] = (1, 1)
+        pr["new_key"] = pr.pop("del_key")
+        pr["new_value"] = pr.pop("del_value")
+        ops.append(pr)
+    return ops, n_levels + 1
+
+
+def _smt_args(ops, n, dev):
+    """`smt.processor`'s arguments (without old_root) for host proofs."""
     sib = fr.pack([o["siblings"] + [0] * (n - len(o["siblings"]))
                    for o in ops], dev).permute(2, 0, 1).contiguous()
 
@@ -203,25 +300,97 @@ def check_smt(dev, rng):
     def flag(fn):
         return torch.tensor([fn(o) for o in ops], device=dev)
 
-    args = dict(siblings=sib, old_key=col("old_key"),
+    return dict(siblings=sib, old_key=col("old_key"),
                 old_value=col("old_value"),
                 is_old0=flag(lambda o: int(o["is_old0"])),
                 new_key=col("new_key"), new_value=col("new_value"),
                 fnc0=flag(lambda o: o["fnc"][0]),
                 fnc1=flag(lambda o: o["fnc"][1]))
+
+
+def smt_bound_of(cargs):
+    """K2's operations and bytes for these chain arguments: the hashes the
+    masks select (old and new chain under `top`, the bottom pair under
+    `bot`), and every argument read once, both outputs written once."""
+    masks = cargs[2]
+    hashes = int(2 * masks[:, 0].sum() + masks[:, 2].sum())
+    moved = nbytes(cargs[0], *cargs[3:]) + 2 * nbytes(cargs[3])
+    moved += cargs[1].numel() + masks.numel()  # one byte a bit and a mask
+    return hashes, (hashes * HASH2_PRODUCTS / rates["mont_mul"], moved)
+
+
+def check_smt(dev, rng):
+    ops, n = _smt_lanes(rng, N_LEVELS)
+    args = _smt_args(ops, n, dev)
     cargs = smt.chain_args(**args)
     compare("smt_chain", f"n={n} B={LANES} ins/upd/del/nop",
             lambda: smt.processor_chain(*cargs),
             lambda: smt.processor_chain_plain(*cargs), 5, timed=False)
-    new_root, ok = smt.processor(col("old_root"), **args)
+    new_root, ok = smt.processor(
+        fr.pack([o["old_root"] for o in ops], dev), **args)
     assert bool(ok.all()), "SMT processor rejected a valid host proof"
     want_roots = [o["new_root"] for o in ops]
     assert [int(v) for v in fr.unpack_np(new_root)] == want_roots
-    # the main path's call: both RollupTx processors of 2048 lanes
-    big = [tile(x, 4096) for x in cargs]
-    compare("smt_chain", f"n={n} B=4096 (lanes tiled)",
-            lambda: smt.processor_chain(*big),
-            lambda: smt.processor_chain_plain(*big), 5)
+    # 1 and 33 lanes, with actions at the root and at the bottom level
+    edge, n = _smt_edge_lanes(rng, 8)
+    for lanes in RAGGED:
+        sub = edge[:lanes]
+        args = _smt_args(sub, n, dev)
+        cargs = smt.chain_args(**args)
+        masks = cargs[2]  # (n, 5, lanes), bottom-up: old0 is row 1, new1 3
+        assert bool(masks[n - 1, 1, 0]), "lane 0 does not act at the root"
+        assert lanes == 1 or bool(masks[1, 3, 1]), \
+            "lane 1 does not act at the bottom level"
+        compare("smt_chain", f"n={n} B={lanes} root/bottom actions",
+                lambda: smt.processor_chain(*cargs),
+                lambda: smt.processor_chain_plain(*cargs), 5, timed=False)
+        new_root, ok = smt.processor(
+            fr.pack([o["old_root"] for o in sub], dev), **args)
+        assert bool(ok.all()), "SMT processor rejected a valid host proof"
+        assert [int(v) for v in fr.unpack_np(new_root)] == \
+            [o["new_root"] for o in sub]
+
+
+def check_main_path_calls(dev, engine, packed):
+    """One more run of the batch with the K1 and K2 wrappers recorded: the
+    shapes and counts of the main path's Poseidon calls, and K2 checked
+    and timed on the batch's own widest call, whose masks give its bound."""
+    shapes = collections.Counter()
+    chain_calls = []
+    real_permute, real_chain = poseidon.permute_mont, smt.processor_chain
+
+    def permute(state):
+        shapes[tuple(state.shape[1:])] += 1
+        return real_permute(state)
+
+    def chain(*cargs):
+        chain_calls.append(cargs)
+        return real_chain(*cargs)
+
+    poseidon.permute_mont, smt.processor_chain = permute, chain
+    try:
+        engine.run_packed(packed)
+        sync()
+    finally:
+        poseidon.permute_mont, smt.processor_chain = real_permute, real_chain
+    print("main path's Poseidon calls (t, lanes) x count: "
+          + ", ".join(f"{k} x {v}" for k, v in sorted(shapes.items())),
+          flush=True)
+    print("main path's SMT chain calls (n, lanes): "
+          + ", ".join(str((c[0].shape[0], c[0].shape[2]))
+                      for c in chain_calls), flush=True)
+    missing = set(POSEIDON_MAIN_PATH) - set(shapes)
+    assert not missing, f"Poseidon shapes not on the main path: {missing}"
+    cargs = max(chain_calls, key=lambda c: c[0].shape[2])
+    n, lanes = cargs[0].shape[0], cargs[0].shape[2]
+    hashes, bound_of = smt_bound_of(cargs)
+    worst = 3 * n * lanes * HASH2_PRODUCTS / rates["mont_mul"] * 1e3
+    print(f"  smt_chain: the batch's masks select {hashes} hashes "
+          f"({hashes / lanes:.2f} a lane); all 3 x {n} levels would bound it "
+          f"at {worst:.4f} ms", flush=True)
+    compare("smt_chain", f"n={n} B={lanes} (the batch's call)",
+            lambda: smt.processor_chain(*cargs),
+            lambda: smt.processor_chain_plain(*cargs), 5, bound_of=bound_of)
 
 
 def check_eddsa(dev, rng):
@@ -262,7 +431,9 @@ def check_eddsa(dev, rng):
     big = [tile(x, 2048) for x in cargs]
     compare("eddsa_check", "B=2048 (lanes tiled)",
             lambda: babyjubjub.eddsa_ok_mont(*big),
-            lambda: babyjubjub.eddsa_ok_mont_plain(*big), 5)
+            lambda: babyjubjub.eddsa_ok_mont_plain(*big), 5,
+            bound_of=(EDDSA_PRODUCTS * 2048 / rates["mont_mul"],
+                      nbytes(*big) + 2048))
 
 
 def _sha_words(msg: bytes, dev):
@@ -283,13 +454,17 @@ def check_sha(dev, rng):
             lambda: sha256.sha256_chain(words, 1),
             lambda: sha256.sha256_chain_plain(words, 1), 5, timed=False)
     # single chains, the last at the main path's HashInputs preimage
-    for nblocks in (1, 3, 822):
+    for nblocks in (1, 3, SHA_BLOCKS):
         msg = rng.randbytes(64 * nblocks - 9)
         words = _sha_words(msg, dev)
+        # one lane is one serial chain of rounds: its latency is the bound
+        chain_s = (nblocks * 64 * SHA_DEPENDENT_OPS * ALU_LATENCY_CLOCKS
+                   / rates["clock_hz"])
         got = compare("sha256_chain", f"nblocks={nblocks} B=1",
                       lambda: sha256.sha256_chain(words, nblocks),
                       lambda: sha256.sha256_chain_plain(words, nblocks), 5,
-                      timed=nblocks == 822)
+                      timed=nblocks == SHA_BLOCKS,
+                      bound_of=(chain_s, nbytes(words) + 8 * 8))
         digest = b"".join(int(v).to_bytes(4, "big")
                           for v in got[:, 0].cpu().tolist())
         assert digest == hashlib.sha256(msg).digest(), "SHA-256 != hashlib"
@@ -303,14 +478,22 @@ def check_full_rounds(dev, rng):
         state, vals = exp_mxu_inkernel.random_state(lanes)
         x = state.to(dev)
         timed = lanes == EXP_LANES
+        # a t=3 full round: 9 products of x^5 and 9 of the mix; K6 does
+        # the mix as 216 u8 mma.m16n8k32 (2 * 16 * 8 * 32 operations each)
+        # for every 32 lanes
+        work = rounds * lanes
+        pow5_s = 9 * work / rates["mont_mul"]
+        mix_mma_s = 216 * 2 * 16 * 8 * 32 * work / 32 / INT8_OPS_PER_S
         outs = [compare(name, f"R={rounds} B={lanes}",
                         lambda fn=fn: fn(x, rounds),
-                        lambda plain=plain: plain(x, rounds), 10, timed)
-                for name, fn, plain in (
+                        lambda plain=plain: plain(x, rounds), 10, timed,
+                        bound_of=(ops_s, 2 * nbytes(x)))
+                for name, fn, plain, ops_s in (
                     ("poseidon_rounds_vpu", poseidon_rounds.full_rounds_vpu,
-                     poseidon_rounds.full_rounds_vpu_plain),
+                     poseidon_rounds.full_rounds_vpu_plain, 2 * pow5_s),
                     ("poseidon_rounds_mxu", poseidon_rounds.full_rounds_mxu,
-                     poseidon_rounds.full_rounds_mxu_plain))]
+                     poseidon_rounds.full_rounds_mxu_plain,
+                     pow5_s + mix_mma_s))]
         assert torch.equal(outs[0], outs[1]), "K5 and K6 differ"
         got = fr.unpack_np(outs[0])
         sample = {0, 777, lanes - 1} | set(rng.sample(range(lanes), 29))
@@ -361,6 +544,66 @@ def production_batch(n_tx, n_levels, max_l1, max_fee):
     return bb
 
 
+def ptxas_report() -> None:
+    """Registers, spills and shared memory of every kernel, as
+    `nvcc -Xptxas -v` printed them during this build."""
+    entry, spills = None, ""
+    for line in kernels.build_log().splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill" in line:
+            spills = line
+        elif entry and line.startswith("ptxas info") and "Used" in line:
+            print(f"  {entry}: {line.split(':', 1)[1].strip()}; {spills}",
+                  flush=True)
+            entry = None
+
+
+def measure_rates(dev) -> None:
+    """Fill `rates`: the card's sustained `fr_mont_mul` rate (the best of
+    1, 2 and 4 independent chains a thread, 8 blocks of 256 threads an SM)
+    and its maximum SM clock; print the rate beside the figure reckoned
+    from the int32 instruction rate, and the time of one product in a chain of
+    dependent ones with one and with two warps a scheduler, which is what
+    a small batch sees."""
+    so = kernels.lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty((8 * sms * 256,), dtype=torch.int32, device=dev)
+
+    def ms_of(chains, blocks, threads, iters):
+        def fn():
+            kernels.check(so.ctpu_mont_rate(
+                kernels.ptr(out), chains, blocks, threads, iters,
+                kernels.stream_ptr(dev)), "ctpu_mont_rate")
+
+        fn()
+        sync()
+        return kernel_ms(fn, 5)
+
+    found = {c: 2048 * 8 * sms * 256 / (ms_of(c, 8 * sms, 256, 2048 // c)
+                                        * 1e-3) for c in (1, 2, 4)}
+    rates["mont_mul"] = max(found.values())
+    # one block an SM: 128 threads leave a scheduler one warp, 256 two
+    chain_ns = [ms_of(1, sms, threads, 2048) * 1e6 / 2048
+                for threads in (128, 256)]
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    rates["clock_hz"] = float(res.stdout.strip().splitlines()[0]) * 1e6
+    reckoned = (INT32_LANES_PER_SM * sms * rates["clock_hz"] / MONT_MUL_SLOTS)
+    print("fr_mont_mul rate: measured "
+          + ", ".join(f"{r:.4e}/s at {c} chains a thread"
+                      for c, r in found.items())
+          + f"; best {rates['mont_mul']:.4e}/s; reckoned {reckoned:.4e}/s "
+          f"({INT32_LANES_PER_SM} int32 lanes x {sms} SMs x "
+          f"{rates['clock_hz'] / 1e6:.0f} MHz / {MONT_MUL_SLOTS} slots a "
+          f"product); one product of a dependent chain: {chain_ns[0]:.1f} "
+          f"ns with one warp a scheduler, {chain_ns[1]:.1f} ns with two",
+          flush=True)
+
+
 def main() -> None:
     # 1 - the card
     if not torch.cuda.is_available():
@@ -379,6 +622,8 @@ def main() -> None:
     kernels.prepare(dev)
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({kernels.library_path().name})", flush=True)
+    ptxas_report()
+    measure_rates(dev)
 
     # 3 - each kernel against its plain version
     print("kernel checks (exact):", flush=True)
@@ -393,7 +638,7 @@ def main() -> None:
     bb = production_batch(n_tx, N_LEVELS, max_l1, max_fee)
     inp = bb.get_input()
     t_host = time.perf_counter() - t0
-    engine = RollupEngine(n_tx, N_LEVELS, max_l1, max_fee, device=dev)
+    engine = RollupEngine(n_tx, N_LEVELS, max_l1, max_fee)  # on the card
     t0 = time.perf_counter()
     packed = engine.pack(inp)
     sync()
@@ -417,6 +662,7 @@ def main() -> None:
     for name in kernels.MAIN_PATH:
         assert launches[name] > 0, \
             f"kernel {name} was not launched by the main path"
+    check_main_path_calls(dev, engine, packed)
 
     # 5 - a tampered signature scalar flips the verdict
     bad = dict(inp)
@@ -452,7 +698,8 @@ def main() -> None:
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
                          max_abs_err=r["err"], ms=r["ms"],
-                         plain_ms=r["plain_ms"]))
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=None))
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

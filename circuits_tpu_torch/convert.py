@@ -3,10 +3,11 @@
 * `packed_from_jax` turns the JAX `pack_rollup_inputs` dict (numpy or
   jax arrays, uint32) into the port's tensors and layout.
 * The constant tables of the port -- Poseidon round constants and MDS
-  matrices for t = 3..7, the SHA-256 K/H0 words and the EdDSA base-8 comb
-  table -- are built here from the shared host code alone
-  (`host.py`), never imported from a JAX module. The tests hold each of
-  them equal to the JAX package's table.
+  matrices for t = 3..7 in the dense and the sparse schedule, the SHA-256
+  K/H0 words and the EdDSA base-8 comb table -- are built here from the
+  port's own host code alone (`field/scalar.py`,
+  `ops/poseidon_constants.py`, `builder/babyjub.py`).
+  The tests hold each of them equal to the JAX package's table.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .host import babyjub, poseidon_constants, scalar
+from .builder import babyjub
+from .field import scalar
+from .ops import poseidon_constants
 
 N_LIMBS = scalar.N_LIMBS
 POSEIDON_WIDTHS = (3, 4, 5, 6, 7)
@@ -52,19 +55,55 @@ def poseidon_tables(t: int):
     return c, m
 
 
+SPARSE_PARTS = ("full_c", "d", "e", "m", "pre_sparse", "sparse_row",
+                "sparse_col")
+
+
+@lru_cache(maxsize=None)
+def _optimized(t: int) -> dict:
+    return poseidon_constants.optimized_constants(t)
+
+
+@lru_cache(maxsize=None)
+def poseidon_sparse_tables(t: int) -> dict:
+    """Sparse-schedule constants (`poseidon_constants.optimized_constants`)
+    in Montgomery limbs, uint32, keyed by SPARSE_PARTS: full_c (8, t, 16),
+    d (t, 16), e (rp, 16), m and pre_sparse (t, t, 16) (row i multiplies
+    state[j] into new[i]), sparse_row (rp, t, 16), sparse_col
+    (rp, t - 1, 16)."""
+    oc = _optimized(t)
+
+    def limbs(x):
+        if isinstance(x, int):
+            return _mont_limbs(x)
+        return [limbs(v) for v in x]
+
+    return {k: np.array(limbs(oc[k]), dtype=np.uint32) for k in SPARSE_PARTS}
+
+
+def row0_e(t: int) -> np.ndarray:
+    """sparse_row[r][0] * e[r] for every partial round, (rp, 16) Montgomery
+    limbs, uint32: what a round adds to the new s[0] beside
+    sparse_row[r][0] * s[0]^5, for the kernels that form that product without
+    passing through x0 = s[0]^5 + e[r] (csrc/poseidon.cuh)."""
+    oc = _optimized(t)
+    return np.array([_mont_limbs(row[0] * e % scalar.P)
+                     for row, e in zip(oc["sparse_row"], oc["e"])],
+                    dtype=np.uint32)
+
+
 @lru_cache(maxsize=None)
 def poseidon_kernel_words() -> np.ndarray:
-    """The CUDA kernels' constant block: for t = 3..7 in turn, the round
-    constants (rounds * t elements) then the MDS matrix (t * t, row
-    major), each element 8 Montgomery words. Layout must match
-    `poseidon_offset` in csrc/poseidon.cuh. Shape (n_elements, 8)."""
-    rows = []
+    """The CUDA kernels' constant block: for t = 3..7 in turn the parts of
+    `poseidon_sparse_tables(t)` in SPARSE_PARTS order, each flattened row
+    major, then `row0_e(t)`; each element 8 Montgomery words. Layout must
+    match `sparse_block` in csrc/poseidon.cuh. Shape (3783, 8)."""
+    blocks = []
     for t in POSEIDON_WIDTHS:
-        C, M = poseidon_constants.constants(t)
-        rf, rp = n_rounds(t)
-        rows += [_mont_words(C[k]) for k in range((rf + rp) * t)]
-        rows += [_mont_words(M[i][j]) for i in range(t) for j in range(t)]
-    return np.array(rows, dtype=np.uint32)
+        tab = poseidon_sparse_tables(t)
+        blocks += [tab[k].reshape(-1, N_LIMBS) for k in SPARSE_PARTS]
+        blocks.append(row0_e(t))
+    return limbs_to_words(np.concatenate(blocks))
 
 
 ROUNDS_T = 3  # the full-round experiment's Poseidon width
@@ -76,7 +115,7 @@ def rounds_tables():
     (8, 3, 16), the optimized schedule's `full_c` (round r uses CF[r % 8]),
     and M (3, 3, 16), the MDS matrix (M[i][j] multiplies state[j] into
     new[i]). uint32."""
-    oc = poseidon_constants.optimized_constants(ROUNDS_T)
+    oc = _optimized(ROUNDS_T)
     cf = np.array([[_mont_limbs(v) for v in row] for row in oc["full_c"]],
                   dtype=np.uint32)
     m = np.array([[_mont_limbs(v) for v in row] for row in oc["m"]],
@@ -113,7 +152,7 @@ def mix_matrices():
       the columns of q * p. Rows 63 and 64 are zero.
     """
     t = ROUNDS_T
-    m = poseidon_constants.optimized_constants(t)["m"]
+    m = _optimized(t)["m"]
     wm = np.zeros((t * 64, t * 32), dtype=np.uint8)
     for e in range(t):
         for j in range(t):

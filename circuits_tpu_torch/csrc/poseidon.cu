@@ -1,18 +1,32 @@
 // K1: the Poseidon permutation, t = 3..7, batched over lanes.
 //
 // Replaces the Pallas TPU kernel circuits_tpu/ops/pallas_poseidon.py
-// (`_compiled` -> pallas_call of `_opt_kernel` / `_kernel`, entry
-// `permute_mont`). One thread per lane keeps the whole t-element state in
-// registers (t * 8 words) for all 8 + R_P rounds; the round constants and
-// MDS matrices sit in __constant__ memory, where every lane of a warp reads
-// the same word (a broadcast).
+// (`_compiled` -> pallas_call of `_opt_kernel` -> `permute_opt_body`, entry
+// `permute_mont`), sparse schedule and all.
 //
-// What bounds it on the card: integer multiply issue. A t = 3 permutation
-// is ~65 * (3 S-box + t^2 mix) ~ 780 Montgomery products of 128 32-bit
-// multiply-adds each; the 16 * t * 8-byte limb traffic per lane is
-// negligible beside that. This first version uses the dense schedule; the
-// sparse partial-round schedule (poseidon_constants.optimized_constants)
-// cuts the partial rounds from t^2 to 2t - 1 products and is later work.
+// What bounds it on the card: operations -- 32-bit integer multiply-adds.
+// A permutation is 8 (t^2 + 3t) + R_P (2t + 2) Montgomery products (600 for
+// t = 3, 1,568 for t = 7); the 2 * 16 * t * 8 bytes of limb traffic a lane
+// are small beside that. But the main path's calls are 2,048 - 8,192 lanes,
+// far too few to fill 132 SMs with one thread a lane, so what the design
+// has to shorten is the chain of dependent products a thread walks, and it
+// has to spread a small batch over the whole card:
+//
+//  * one thread per state element (poseidon.cuh): a lane is a group of
+//    G = 4 (t <= 4) or 8 (t >= 5) threads of one warp. A full round's row
+//    of the mix is t products in its thread, and a partial round is 3
+//    dependent products whatever t is (4 for t = 4, whose group has no
+//    spare thread). Per thread the state is 8 registers, not 8 t, so no
+//    width spills;
+//  * 64-thread blocks, so 2,048 lanes of t = 7 make 256 blocks and every SM
+//    gets warps;
+//  * a thread whose element index is >= t (G - t of each group) is a
+//    passenger: it runs the same instructions and contributes zero. In a
+//    warp that costs instruction slots, not time, while the card is
+//    underfilled.
+//
+// One kernel serves every width: t is a run-time argument, the round loops
+// are not unrolled, and the constants come from device memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,46 +34,52 @@
 
 using namespace ctpu;
 
-template <int T>
-__global__ void __launch_bounds__(128)
+constexpr int K1_THREADS = 64;
+
+template <int G>
+__global__ void __launch_bounds__(K1_THREADS)
 poseidon_permute_kernel(const int64_t* __restrict__ in, int64_t* __restrict__ out,
-                        int64_t B) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  // layout (16, T, B): limb l of element i of lane b at (l * T + i) * B + b
-  uint32_t s[T][8];
-#pragma unroll
-  for (int i = 0; i < T; i++)
+                        const uint32_t* __restrict__ tab, int t, int64_t B) {
+  const int64_t tid = (int64_t)blockIdx.x * K1_THREADS + threadIdx.x;
+  const int64_t b = tid / G;
+  const int i = (int)(tid % G);
+  const bool live = b < B && i < t;
+  // layout (16, t, B): limb l of element i of lane b at (l * t + i) * B + b
+  uint32_t s[8];
+  fr_zero(s);
+  if (live) {
 #pragma unroll
     for (int k = 0; k < 8; k++)
-      s[i][k] = (uint32_t)in[((2 * k) * T + i) * B + b] |
-                ((uint32_t)in[((2 * k + 1) * T + i) * B + b] << 16);
-  poseidon_permute<T>(s);
-#pragma unroll
-  for (int i = 0; i < T; i++)
+      s[k] = (uint32_t)in[((2 * k) * t + i) * B + b] |
+             ((uint32_t)in[((2 * k + 1) * t + i) * B + b] << 16);
+  }
+  poseidon_permute_group<G>(s, tab, t, i);
+  if (live) {
 #pragma unroll
     for (int k = 0; k < 8; k++) {
-      out[((2 * k) * T + i) * B + b] = (int64_t)(s[i][k] & 0xffffu);
-      out[((2 * k + 1) * T + i) * B + b] = (int64_t)(s[i][k] >> 16);
+      out[((2 * k) * t + i) * B + b] = (int64_t)(s[k] & 0xffffu);
+      out[((2 * k + 1) * t + i) * B + b] = (int64_t)(s[k] >> 16);
     }
+  }
 }
 
-extern "C" int ctpu_poseidon_init(const uint32_t* host_words, int n_elems) {
-  return poseidon_upload(host_words, n_elems);
-}
-
-extern "C" int ctpu_poseidon_permute(const int64_t* in, int64_t* out, int t,
+// `tab` is the whole constant table (convert.poseidon_kernel_words) in
+// device memory, n_elems elements of 8 words.
+extern "C" int ctpu_poseidon_permute(const int64_t* in, int64_t* out,
+                                     const uint32_t* tab, int n_elems, int t,
                                      int64_t B, void* stream) {
-  const int threads = 128;
-  const dim3 grid((unsigned)((B + threads - 1) / threads));
+  if (n_elems != SPARSE_ELEMS || t < 3 || t > 7 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t* block = tab + 8 * sparse_offset(t);
   cudaStream_t st = (cudaStream_t)stream;
-  switch (t) {
-    case 3: poseidon_permute_kernel<3><<<grid, threads, 0, st>>>(in, out, B); break;
-    case 4: poseidon_permute_kernel<4><<<grid, threads, 0, st>>>(in, out, B); break;
-    case 5: poseidon_permute_kernel<5><<<grid, threads, 0, st>>>(in, out, B); break;
-    case 6: poseidon_permute_kernel<6><<<grid, threads, 0, st>>>(in, out, B); break;
-    case 7: poseidon_permute_kernel<7><<<grid, threads, 0, st>>>(in, out, B); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (t <= 4) {
+    const int64_t threads = B * 4;
+    const dim3 grid((unsigned)((threads + K1_THREADS - 1) / K1_THREADS));
+    poseidon_permute_kernel<4><<<grid, K1_THREADS, 0, st>>>(in, out, block, t, B);
+  } else {
+    const int64_t threads = B * 8;
+    const dim3 grid((unsigned)((threads + K1_THREADS - 1) / K1_THREADS));
+    poseidon_permute_kernel<8><<<grid, K1_THREADS, 0, st>>>(in, out, block, t, B);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@
 // (`_kernel_vpu`, the production round `pallas_poseidon.opt_full_round`).
 // One thread per lane keeps the 3 x 8 words of state in registers for all
 // R rounds and computes the mix as nine Montgomery products (field.cuh's
-// CIOS). Bound by integer multiply issue: 18 Montgomery products a round.
+// fr_mont_mul). Bound by integer multiply throughput: 18 Montgomery
+// products a round.
 //
 // K6 replaces `call_mxu` (`_kernel_mxu` / `_mxu_round_body`), which puts
 // the mix and its Montgomery reduction on the TPU's matrix unit. Here they

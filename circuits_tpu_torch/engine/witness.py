@@ -3,9 +3,10 @@
 Port of `circuits_tpu/engine/witness.py` (RollupMain part): builder input
 dict (Python ints, camelCase keys of the circom input JSON) -> packed
 int64 limb tensors with the tx lane as batch axis -> one evaluation that
-returns the public outputs and a validity verdict. The device of the
-engine decides where everything runs: "cpu" takes the plain PyTorch
-versions, a CUDA device the hand-written kernels.
+returns the public outputs and a validity verdict. The entry points run on
+the card ("cuda") unless the caller names another device, and raise where
+there is no card; they never carry on on the CPU by themselves. A caller
+who passes `device="cpu"` (the tests) gets the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -48,6 +49,17 @@ def _snake(name: str) -> str:
     return "".join(out)
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device; raises where it names a CUDA device and
+    there is none."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for but torch.cuda.is_available() "
+            "is False; pass device=\"cpu\" to run the plain versions")
+    return dev
+
+
 def _flags(vals, device) -> torch.Tensor:
     return torch.tensor([int(v) for v in vals], dtype=torch.int64,
                         device=device)
@@ -55,8 +67,9 @@ def _flags(vals, device) -> torch.Tensor:
 
 def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
                        max_l1_tx: int, max_fee_tx: int,
-                       device="cpu") -> dict:
+                       device="cuda") -> dict:
     """Builder/JSON input dict -> the models' tensors on `device`."""
+    device = resolve_device(device)
     out = {}
     for k in _SCALARS:
         out[_snake(k)] = fr.pack([inp[k]], device)
@@ -87,9 +100,10 @@ class RollupEngine:
     """RollupMain(nTx, nLevels, maxL1Tx, maxFeeTx) witness engine on one
     device."""
 
-    def __init__(self, n_tx, n_levels, max_l1_tx, max_fee_tx, device="cpu"):
+    def __init__(self, n_tx, n_levels, max_l1_tx, max_fee_tx,
+                 device="cuda"):
         self.params = (n_tx, n_levels, max_l1_tx, max_fee_tx)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def pack(self, inp: dict) -> dict:
         return pack_rollup_inputs(inp, *self.params, device=self.device)

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import scalar
+from . import scalar
 P, N_LIMBS, LIMB_BITS = scalar.P, scalar.N_LIMBS, scalar.LIMB_BITS
 LIMB_MASK, N0, R, R2 = scalar.LIMB_MASK, scalar.N0, scalar.R, scalar.R2
 

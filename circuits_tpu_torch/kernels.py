@@ -2,9 +2,12 @@
 
 The kernels are compiled by `nvcc` for `sm_90a` into ONE shared
 library with a plain C interface and loaded with `ctypes` -- no PyTorch
-headers, so a build takes seconds. The library is built at first use into
-`build/` at the repository root, named by a hash of the sources, so an
-edited source is rebuilt and an unchanged one is not.
+headers, so a build takes seconds. The library is built
+at first use into `build/` at the repository root, named by a hash of the
+sources, so an edited source is rebuilt and an unchanged one is not. Each
+source is compiled by its own `nvcc`, all started together, and the objects
+are linked at the end; what `-Xptxas -v` said of each kernel (registers,
+spills, shared memory) is kept beside the library (`build_log`).
 
 Each op module owns a wrapper that checks its tensors, allocates outputs
 with `torch.empty`, launches on `torch.cuda.current_stream()`, raises if
@@ -26,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("poseidon.cu", "smt.cu", "eddsa.cu", "sha256.cu",
-           "poseidon_rounds.cu")
+           "poseidon_rounds.cu", "mont_rate.cu")
 HEADERS = ("field.cuh", "poseidon.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -39,7 +42,7 @@ launches = {"poseidon_permute": 0, "smt_chain": 0, "eddsa_check": 0,
 MAIN_PATH = ("poseidon_permute", "smt_chain", "eddsa_check", "sha256_chain")
 
 _lib = None
-_initialised_devices: set[int] = set()
+_prepared: dict[int, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -74,15 +77,40 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    procs = [subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v", "-c", str(CSRC / s), "-o", str(o)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    try:
+        for s, p, out in zip(SOURCES, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {s} ({p.returncode}):\n{out}")
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        res = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed to link ({res.returncode}):\n{res.stderr}")
+        so.with_suffix(".log").write_text("".join(
+            f"== {s}\n{out}" for s, out in zip(SOURCES, outs)))
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return so
+
+
+def build_log() -> str:
+    """What `nvcc -Xptxas -v` printed when the current library was built
+    (empty if it was built by another tree)."""
+    log = build().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def lib() -> ctypes.CDLL:
@@ -92,15 +120,14 @@ def lib() -> ctypes.CDLL:
         so = ctypes.CDLL(str(build()))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         sigs = {
-            "ctpu_poseidon_init": [P, I],
-            "ctpu_smt_init": [P, I],
-            "ctpu_poseidon_permute": [P, P, I, L, P],
-            "ctpu_smt_chain": [P, P, P, P, P, P, P, I, L, P],
+            "ctpu_poseidon_permute": [P, P, P, I, I, L, P],
+            "ctpu_smt_chain": [P, P, P, P, P, P, P, P, I, I, L, P],
             "ctpu_eddsa_check": [P, P, P, P, P, P, P, P, L, P],
             "ctpu_sha256_chain": [P, P, I, L, P],
             "ctpu_rounds_init": [P, I],
             "ctpu_rounds_vpu": [P, P, I, L, P],
             "ctpu_rounds_mxu": [P, P, P, P, P, I, L, P],
+            "ctpu_mont_rate": [P, I, I, I, I, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(so, name)
@@ -110,31 +137,40 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def _check(rc: int, what: str) -> None:
+def check(rc: int, what: str) -> None:
+    """Raise on a CUDA error code returned by a C function."""
     if rc != 0:
         raise RuntimeError(f"CUDA error {rc} in {what}")
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+
 def prepare(device: torch.device) -> ctypes.CDLL:
-    """The library, with the Poseidon constants uploaded to `device`'s
-    __constant__ banks (once per device and process)."""
+    """The library, with `device` set up for the kernels (once per device
+    and process): K5/K6's constants in their __constant__ bank, and the
+    Poseidon constant table of K1 and K2 in device memory."""
     from .convert import poseidon_kernel_words, rounds_kernel_words
 
     so = lib()
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if index not in _initialised_devices:
-        words = np.ascontiguousarray(poseidon_kernel_words())
-        ptr = words.ctypes.data_as(ctypes.c_void_p)
+    index = _index(device)
+    if index not in _prepared:
         with torch.cuda.device(index):
-            _check(so.ctpu_poseidon_init(ptr, words.shape[0]),
-                   "ctpu_poseidon_init")
-            _check(so.ctpu_smt_init(ptr, words.shape[0]), "ctpu_smt_init")
             rw = np.ascontiguousarray(rounds_kernel_words())
-            _check(so.ctpu_rounds_init(rw.ctypes.data_as(ctypes.c_void_p),
+            check(so.ctpu_rounds_init(rw.ctypes.data_as(ctypes.c_void_p),
                                        rw.shape[0]), "ctpu_rounds_init")
-        _initialised_devices.add(index)
+        words = np.ascontiguousarray(poseidon_kernel_words()).view(np.int32)
+        _prepared[index] = torch.from_numpy(words).to(
+            torch.device("cuda", index))
     return so
+
+
+def poseidon_table(device: torch.device) -> torch.Tensor:
+    """`convert.poseidon_kernel_words()` as an int32 tensor (n_elements, 8)
+    in `device`'s memory; `prepare(device)` has put it there."""
+    return _prepared[_index(device)]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -161,5 +197,5 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def launch(name: str, rc: int) -> None:
     """Record one launch of kernel `name`; raise on a CUDA error code."""
-    _check(rc, name)
+    check(rc, name)
     launches[name] += 1

@@ -21,7 +21,7 @@ import torch
 from .. import kernels
 from ..convert import comb_table, limbs_to_words
 from ..field import fr
-from ..host import babyjub
+from ..builder import babyjub
 from .poseidon import poseidon
 
 N_LIMBS = fr.N_LIMBS

@@ -12,7 +12,8 @@ from functools import lru_cache
 import torch
 
 from ..field import fr
-from ..host import fee_table, scalar
+from ..builder import fee_table
+from ..field import scalar
 
 BITS_SHIFT = fee_table.BITS_SHIFT
 

@@ -27,7 +27,8 @@ import torch
 from .. import kernels
 from ..convert import ROUNDS_T, mix_matrices, rounds_tables
 from ..field import fr
-from ..host import poseidon_constants, scalar
+from ..field import scalar
+from . import poseidon_constants
 from .poseidon import _pow5
 
 N_LIMBS = fr.N_LIMBS

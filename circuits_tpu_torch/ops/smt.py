@@ -3,7 +3,9 @@
 Port of `circuits_tpu/ops/smt.py`: the top-down state machine
 (top / old0 / bot / new1 / upd) and the leaf hashes stay here; the
 bottom-up hash chains run in `processor_chain`, the wrapper of kernel K2
-(csrc/smt.cu), whose plain version is `processor_chain_plain`.
+(csrc/smt.cu), whose plain version is `processor_chain_plain`. Both hash
+with the sparse Poseidon schedule and take a level's hashes only where a
+mask can select them.
 """
 
 from __future__ import annotations
@@ -91,12 +93,16 @@ def processor_chain(sib_f, bits_f, masks_f, old1leaf, new1leaf, new1h):
     for name, x in (("old1leaf", old1leaf), ("new1leaf", new1leaf),
                     ("new1h", new1h)):
         kernels.require(x, name, torch.int64, (N_LIMBS, b), dev)
-    so = kernels.prepare(dev)
     out = torch.empty((2, N_LIMBS, b), dtype=torch.int64, device=dev)
+    if b == 0:
+        return out[0], out[1]
+    so = kernels.prepare(dev)
+    tab = kernels.poseidon_table(dev)
     kernels.launch("smt_chain", so.ctpu_smt_chain(
         kernels.ptr(sib_f), kernels.ptr(bits_u8), kernels.ptr(masks_u8),
         kernels.ptr(old1leaf), kernels.ptr(new1leaf), kernels.ptr(new1h),
-        kernels.ptr(out), n, b, kernels.stream_ptr(dev)))
+        kernels.ptr(out), kernels.ptr(tab), tab.shape[0], n, b,
+        kernels.stream_ptr(dev)))
     return out[0], out[1]
 
 

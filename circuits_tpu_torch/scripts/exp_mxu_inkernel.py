@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..field import fr
-from ..host import scalar
+from ..field import scalar
 from ..ops import poseidon_rounds
 
 T3 = 3

@@ -15,8 +15,8 @@ import torch
 
 from circuits_tpu_torch import kernels
 from circuits_tpu_torch.engine.witness import RollupEngine
-from circuits_tpu_torch.field import fr
-from circuits_tpu_torch.host import babyjub, scalar
+from circuits_tpu_torch.builder import babyjub
+from circuits_tpu_torch.field import fr, scalar
 from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
                                     sha256, smt)
 from circuits_tpu_torch.scripts import exp_mxu_inkernel
@@ -27,6 +27,9 @@ from torch_compare import (SUITE_CONFIG, assert_same, oracle_outputs,
 pytestmark = pytest.mark.gpu
 
 LANES = 300  # not a multiple of the kernels' block sizes
+# 1 and 33 lanes are no multiple of a thread group's lanes a warp (K1: 8 or
+# 4, K2: 4); 4096 is the main path's SMT call at RollupMain(2048, ...)
+LANE_COUNTS = [1, 33, 1000, 4096]
 
 
 @pytest.fixture(scope="module")
@@ -44,21 +47,31 @@ def _field(rng, shape):
     return fr.pack(np.array(ints, dtype=object).reshape(shape).tolist())
 
 
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
 @pytest.mark.parametrize("t", [3, 4, 5, 6, 7])
-def test_poseidon_kernel_matches_plain(cuda, t):
-    state = _field(np.random.default_rng(t), (t, LANES)).to(cuda)
-    assert_same(poseidon.permute_mont(state),
-                poseidon.permute_mont_plain(state))
+def test_poseidon_kernel_matches_plain(cuda, t, lanes):
+    state = _field(np.random.default_rng(t), (t, lanes))
+    state[:, :, 0] = fr.pack([0, scalar.P - 1, 1, 0, scalar.P - 1, 2, 3][:t])
+    state = state.to(cuda)
+    got = poseidon.permute_mont(state)
+    assert_same(got, poseidon.permute_mont_plain(state, schedule="sparse"))
+    assert_same(got, poseidon.permute_mont_plain(state, schedule="dense"))
 
 
-def test_smt_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("lanes", LANE_COUNTS)
+def test_smt_kernel_matches_plain(cuda, lanes):
+    """Random masks, every combination of the five (also `top` with `bot`,
+    which the state machine never sets together), and levels with no mask
+    at all."""
     rng = np.random.default_rng(3)
     n = 9
-    sib = _field(rng, (n, LANES)).permute(1, 0, 2).contiguous()
+    sib = _field(rng, (n, lanes)).permute(1, 0, 2).contiguous()
     sib[:, :, ::3] = 0  # empty subtrees below some lanes
-    bits = torch.from_numpy(rng.integers(0, 2, (n, LANES)))
-    masks = torch.from_numpy(rng.integers(0, 2, (n, 5, LANES)))
-    leaves = [_field(rng, (LANES,)) for _ in range(3)]
+    bits = torch.from_numpy(rng.integers(0, 2, (n, lanes)))
+    masks = torch.from_numpy(rng.integers(0, 2, (n, 5, lanes)))
+    masks[:3] = 0
+    masks[5, :, ::2] = 0
+    leaves = [_field(rng, (lanes,)) for _ in range(3)]
     args = [x.to(cuda).contiguous() for x in (sib, bits, masks, *leaves)]
     assert_same(smt.processor_chain(*args),
                 smt.processor_chain_plain(*args))

@@ -1,32 +1,42 @@
-"""The port runs where JAX cannot be imported (the card's machine has no
-JAX): a subprocess blocks every `jax` import with a meta-path finder,
-imports `circuits_tpu_torch` and its host door, builds the suite's
-(3, 16, 2, 2) batches with the shared builder, runs `RollupEngine.run` on
-the CPU, holds the outputs against the builder, runs both plain versions of
-the full-round experiment against its bigint mirror, and checks that `jax`
-never entered `sys.modules`."""
+"""The port stands alone: it runs where neither JAX nor the JAX package
+can be imported (the card's machine has no JAX). A subprocess blocks every
+`jax*` and `circuits_tpu` import with a meta-path finder, imports
+`circuits_tpu_torch`, builds the suite's (3, 16, 2, 2) batches with the
+port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
+outputs against the builder, runs both plain versions of the full-round
+experiment against its bigint mirror, and checks that neither `jax` nor
+`circuits_tpu` ever entered `sys.modules`. A second case: the engine with
+no `device` asks for the card and raises where there is none."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import pytest
+import torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent("""
+BLOCK = textwrap.dedent("""
     import sys
 
-    class BlockJax:
+    def blocked(name):
+        return (name in ("jax", "jaxlib", "circuits_tpu")
+                or name.startswith(("jax.", "jaxlib.", "circuits_tpu.")))
+
+    class Block:
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if blocked(name):
                 raise ImportError(f"{name} is blocked")
             return None
 
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, Block())
     sys.path[:0] = sys.argv[1:3]  # the repository root, tests/
+""")
 
+SCRIPT = BLOCK + textwrap.dedent("""
     import circuits_tpu_torch  # noqa: F401
-    import circuits_tpu_torch.host  # noqa: F401
     from circuits_tpu_torch.engine.witness import RollupEngine
     from circuits_tpu_torch.field import fr
     from circuits_tpu_torch.ops import poseidon_rounds
@@ -44,18 +54,54 @@ SCRIPT = textwrap.dedent("""
     assert bool((vpu == poseidon_rounds.full_rounds_mxu_plain(state, 2)).all())
     got = fr.unpack_np(vpu)
     for lane in range(6):
-        assert [int(got[e, lane]) for e in range(3)] == \
+        assert [int(got[e, lane]) for e in range(3)] == \\
             poseidon_rounds.full_rounds_py([v[lane] for v in vals], 2), lane
-    assert not any(m == "jax" or m.startswith(("jax.", "jaxlib"))
-                   for m in sys.modules), "jax was imported"
-    print("JAX-FREE OK")
+    assert not any(blocked(m) for m in sys.modules), \\
+        [m for m in sys.modules if blocked(m)]
+    print("STANDS ALONE OK")
+""")
+
+NO_CARD_SCRIPT = BLOCK + textwrap.dedent("""
+    import torch
+    from circuits_tpu_torch.engine import witness
+    from circuits_tpu_torch.ops import poseidon, smt
+    from torch_compare import SUITE_CONFIG, suite_batches
+
+    assert not torch.cuda.is_available()
+    ran = []
+    for mod, fn in ((poseidon, "permute_mont_plain"),
+                    (smt, "processor_chain_plain")):
+        setattr(mod, fn, lambda *a, **k: ran.append(1))
+    for call in (lambda: witness.RollupEngine(4, 8, 2, 2),
+                 lambda: witness.pack_rollup_inputs(
+                     suite_batches()["deposit"].get_input(), *SUITE_CONFIG)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "cuda" in str(e) and "cpu" in str(e), e
+        else:
+            raise AssertionError("ran without a card and without device")
+    assert not ran, "a plain version ran on the CPU unasked"
+    print("NO CARD OK")
 """)
 
 
-def test_port_runs_without_jax():
+def _run(script):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", SCRIPT, ROOT,
-                          os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
+    return subprocess.run([sys.executable, "-c", script, ROOT,
+                           os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+
+
+def test_port_runs_without_jax():
+    res = _run(SCRIPT)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert "JAX-FREE OK" in res.stdout
+    assert "STANDS ALONE OK" in res.stdout
+
+
+def test_default_device_is_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this case is about a machine without a card")
+    res = _run(NO_CARD_SCRIPT)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "NO CARD OK" in res.stdout

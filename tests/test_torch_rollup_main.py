@@ -24,7 +24,8 @@ def batches():
 
 @pytest.fixture(scope="module")
 def engines():
-    return JaxEngine(*SUITE_CONFIG), RollupEngine(*SUITE_CONFIG)
+    return (JaxEngine(*SUITE_CONFIG),
+            RollupEngine(*SUITE_CONFIG, device="cpu"))
 
 
 @pytest.fixture(scope="module")

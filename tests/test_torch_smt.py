@@ -109,6 +109,34 @@ def test_chain_plain_equals_wrapper_on_cpu(cases):
                 smt.processor_chain_plain(*cargs))
 
 
+def test_chain_plain_equals_jax_chain(cases):
+    """`processor_chain_plain` on the port's chain arguments == the JAX
+    package's level-by-level chain (`jsmt.processor_chains`, the XLA scan
+    that the Pallas kernel is held against), lane for lane."""
+    ops = cases[0]
+    args = _args(ops)
+    del args["old_root"]
+    targs = {k: to_torch(v) for k, v in args.items()}
+    old, new = smt.processor_chain_plain(*smt.chain_args(**targs))
+    want_old, want_new, _ = jax.jit(jsmt.processor_chains)(**args)
+    f_delete = to_torch(args["fnc0"]).bool() & to_torch(args["fnc1"]).bool()
+    # processor_chains swaps the two chains on DELETE lanes
+    assert_same(fr.select(f_delete, new, old), want_old, "old")
+    assert_same(fr.select(f_delete, old, new), want_new, "new")
+
+
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_processor_at_ragged_lane_counts(cases, lanes):
+    """1 and 33 lanes (no multiple of the kernel's 4 lanes a warp): the
+    wrapper on the CPU against the host tree's roots."""
+    ops = [cases[0][i % 17] for i in range(lanes)]
+    args = {k: to_torch(v) for k, v in _args(ops).items()}
+    new_root, ok = smt.processor(**args)
+    assert bool(ok.all())
+    assert [int(v) for v in fr.unpack_np(new_root)] == \
+        [o["new_root"] for o in ops]
+
+
 def test_wrapper_refuses_other_devices():
     meta = dict(dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):

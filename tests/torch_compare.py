@@ -26,10 +26,12 @@ def suite_batches() -> dict:
     """The end-to-end suite's two batches at SUITE_CONFIG
     (tests/test_engine_e2e.py): "deposit" (two L1 account-creating
     deposits) and "l2" (an L2 transfer with a fee, an exit with a fee, one
-    fee token). The builder is reached through the port's jax-free door,
-    so this also runs where JAX cannot be imported."""
-    from circuits_tpu_torch.host import (Constants, HermezAccount, RollupDB,
-                                         float40)
+    fee token). The builder is the port's own copy, so this also runs
+    where neither JAX nor the JAX package can be imported."""
+    from circuits_tpu_torch.builder import float40
+    from circuits_tpu_torch.builder.account import HermezAccount
+    from circuits_tpu_torch.builder.rollup_db import RollupDB
+    from circuits_tpu_torch.builder.state_utils import Constants
 
     a1, a2 = HermezAccount(1), HermezAccount(2)
     db = RollupDB()
