@@ -13,10 +13,15 @@ Phases (any failure raises, and the exit code is then non-zero):
     exactly, at 1, 33 and 1000 lanes (no multiples of a thread group or a
     block): K1 Poseidon t = 3..7, K2 SMT chain on INSERT / UPDATE / DELETE
     / NOP lanes and on lanes that act at the root and at the bottom level,
-    K3 EdDSA on valid, tampered and s >= 2^253 lanes, K4 SHA-256 at 1, 3
-    and 822 blocks (also against hashlib); then again at the lane counts
-    of the main path's calls at RollupMain(2048, 32, 256, 64), where both
-    versions are timed;
+    K3 EdDSA on valid, tampered and s >= 2^253 lanes and on edge lanes (A
+    off the curve, A or R8 the identity, hm = 0, S = 0, every hm digit 15),
+    K4 SHA-256 on both sides of its choice of route, on several narrow
+    lanes, at 1 to 822 blocks and on a batch of 32768 withdrawals' 2 blocks
+    (its wide route, timed; lanes also against hashlib); then
+    again at the lane counts of the main path's calls at RollupMain(2048,
+    32, 256, 64), where both versions are timed; K3 also with the card
+    filled (32768 lanes, the kernel alone), and beside its throughput bound
+    the time of one lane's own chain of dependent products;
  4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
     token), run `RollupEngine(...).run` on the card, hold the hash, roots
@@ -38,7 +43,7 @@ Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's rate for them: Montgomery products over the measured `fr_mont_mul`
 rate, K6's mix over the published 1,979 TOP/s int8, K4's serial chain of
-rounds over the card's clock. No PyTorch call computes any of the six
+rounds (3 dependent operations a round) over the card's clock. No PyTorch call computes any of the six
 functions, so `library_ms` is null in every row.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -57,6 +62,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -71,7 +77,8 @@ from circuits_tpu_torch.field import fr, scalar  # noqa: E402
 from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
                                     poseidon_constants, poseidon_rounds,
                                     sha256, smt)
-from circuits_tpu_torch.scripts import exp_mxu_inkernel  # noqa: E402
+from circuits_tpu_torch.scripts import (eddsa_cases,  # noqa: E402
+                                        exp_mxu_inkernel)
 
 LANES = 1000
 RAGGED = (1, 33)  # lane counts below a warp's and a block's lanes
@@ -101,13 +108,38 @@ INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core peak, the same sheet
 # carry adds about 270
 MONT_MUL_SLOTS = 270
 INT32_LANES_PER_SM = 64
-# Montgomery products of K3 a lane (csrc/eddsa.cu): a 14-add table, 64
-# windows of 4 doublings (8) + a unified add (13) + a mixed add (12), the
-# last mixed add and the 4 products of the projective comparison
-EDDSA_PRODUCTS = 14 * 12 + 64 * (4 * 8 + 13 + 12) + 12 + 4
+# K3 (csrc/eddsa.cu), on the curve's a = 1 form: products a group of four
+# threads forms at each step of a doubling and of a unified add, and the
+# products of a mixed add (Z2 = 1, and the comb's third column), which ride
+# in the free slots (tests/test_torch_eddsa.py holds the same tables against
+# the host curve code)
+EDDSA_DBL_STEPS, EDDSA_ADD_STEPS = (4, 3), (4, 2, 1, 3, 2)
+EDDSA_MIXED_ADD = 11
+# Montgomery products a lane: Ax and R8x mapped, a 14-add table (mixed adds),
+# 64 windows of 4 doublings, a unified add and a mixed add, the mixed add of
+# R8 and the 4 products of the projective comparison
+EDDSA_PRODUCTS = (2 + 14 * EDDSA_MIXED_ADD
+                  + 64 * (4 * sum(EDDSA_DBL_STEPS) + sum(EDDSA_ADD_STEPS)
+                          + EDDSA_MIXED_ADD) + EDDSA_MIXED_ADD + 4)
+# steps of one lane's chain, one dependent product each
+EDDSA_STEPS = (2 + 14 * len(EDDSA_ADD_STEPS)
+               + 64 * (4 * len(EDDSA_DBL_STEPS) + len(EDDSA_ADD_STEPS))
+               + len(EDDSA_ADD_STEPS) + 1)
+EDDSA_MAIN_PATH_LANES, EDDSA_FILLED_LANES = 2048, 32768
 SHA_BLOCKS = 822  # the HashInputs preimage at RollupMain(2048, 32, 256, 64)
-# a SHA-256 round's chain from e to the next e: Sigma1, two adds, d + T1
-SHA_DEPENDENT_OPS, ALU_LATENCY_CLOCKS = 4, 4
+# a SHA-256 round's chain from e to the next e, once h + K + W + d is formed
+# ahead: a funnel shift of Sigma1, the three-input xor, the three-input add
+# (SHF, LOP3, IADD3), each with the ALU's latency
+SHA_DEPENDENT_OPS, ALU_LATENCY_CLOCKS = 3, 4
+# 32-bit integer operations of one message block at their least: a round is
+# 6 shifts, 4 three-input logic operations (Sigma0, Sigma1, Ch, Maj) and 4
+# three-input adds; a schedule word (48 a block) 6 shifts, 2 xors and 2
+# adds; K + W one add
+SHA_BLOCK_OPS = 64 * 14 + 48 * 10 + 64
+# HashInputs of Withdraw: 688 bits, 2 blocks a lane, one lane a withdrawal
+# (`hash_inputs_withdrawal` of the JAX package); the lane count is the one K3
+# is filled at. This is the shape that K4's wide route is for.
+SHA_WITHDRAW = (32768, 2)
 
 
 def poseidon_products(t: int) -> int:
@@ -154,7 +186,9 @@ def max_err(a, b) -> int:
 
 
 results = {}
-rates = {}  # "mont_mul": products/s measured, "clock_hz": max SM clock
+# "mont_mul": products/s measured; "chain_ns": one product of a dependent
+# chain, a warp alone on its scheduler; "clock_hz": max SM clock
+rates = {}
 
 
 def nbytes(*tensors) -> int:
@@ -427,47 +461,100 @@ def check_eddsa(dev, rng):
                   lambda: babyjubjub.eddsa_ok_mont_plain(*cargs), 5,
                   timed=False)
     assert got.cpu().tolist() == expect, "EdDSA verdicts differ from host"
+    # 1 and 33 lanes: less than a warp's 8 lanes, and a ragged last warp
+    for n in RAGGED:
+        sub = [x[:, :n].contiguous() for x in cargs]
+        got = compare("eddsa_check", f"B={n}",
+                      lambda: babyjubjub.eddsa_ok_mont(*sub),
+                      lambda: babyjubjub.eddsa_ok_mont_plain(*sub), 5,
+                      timed=False)
+        assert got.cpu().tolist() == expect[:n]
+    # edge lanes: the verdict is the host curve code's
+    edge = eddsa_cases.edge_lanes(rng)
+    eargs = eddsa_cases.kernel_args([row for _, row, _ in edge], dev)
+    got = compare("eddsa_check", f"B={len(edge)} edge lanes",
+                  lambda: babyjubjub.eddsa_ok_mont(*eargs),
+                  lambda: babyjubjub.eddsa_ok_mont_plain(*eargs), 5,
+                  timed=False)
+    for (name, _, want), ok in zip(edge, got.cpu().tolist()):
+        assert want is None or ok == want, f"EdDSA edge lane {name}: {ok}"
+    # the card filled: the kernel alone, its verdicts those of the tiled lanes
+    ops_s = EDDSA_PRODUCTS / rates["mont_mul"]
+    full = [tile(x, EDDSA_FILLED_LANES) for x in cargs]
+    got = babyjubjub.eddsa_ok_mont(*full)
+    assert got.cpu().tolist() == [expect[i % LANES] for i in
+                                  range(EDDSA_FILLED_LANES)]
+    ms = kernel_ms(lambda: babyjubjub.eddsa_ok_mont(*full), 5)
+    bound_ms, by = bound(ops_s * EDDSA_FILLED_LANES,
+                         nbytes(*full) + EDDSA_FILLED_LANES)
+    print(f"  eddsa_check       B={EDDSA_FILLED_LANES} (the card filled, "
+          f"lanes tiled) verdicts as the {LANES} lanes' kernel={ms:.4f} ms "
+          f"bound={bound_ms:.4f} ms ({by}; kernel reaches "
+          f"{100 * bound_ms / ms:.1f} % of it)", flush=True)
     # the main path's call: one signature check per tx lane
-    big = [tile(x, 2048) for x in cargs]
-    compare("eddsa_check", "B=2048 (lanes tiled)",
+    n = EDDSA_MAIN_PATH_LANES
+    big = [tile(x, n) for x in cargs]
+    compare("eddsa_check", f"B={n} (lanes tiled)",
             lambda: babyjubjub.eddsa_ok_mont(*big),
             lambda: babyjubjub.eddsa_ok_mont_plain(*big), 5,
-            bound_of=(EDDSA_PRODUCTS * 2048 / rates["mont_mul"],
-                      nbytes(*big) + 2048))
+            bound_of=(ops_s * n, nbytes(*big) + n))
+    r = results["eddsa_check"]
+    chain_ms = EDDSA_STEPS * rates["chain_ns"] * 1e-6
+    binds = "the chain" if chain_ms > r["bound_ms"] else "the throughput"
+    print(f"  eddsa_check       B={n}: a lane's chain is {EDDSA_STEPS} steps "
+          f"x {rates['chain_ns']:.1f} ns = {chain_ms:.4f} ms, the throughput "
+          f"bound {r['bound_ms']:.4f} ms: {binds} binds; the kernel reaches "
+          f"{100 * chain_ms / r['ms']:.1f} % of the chain's time",
+          flush=True)
 
 
-def _sha_words(msg: bytes, dev):
-    """hashlib-style padding -> (nblocks * 16, 1) int64 words."""
-    n = len(msg)
-    padded = msg + b"\x80" + b"\x00" * ((55 - n) % 64) + (8 * n).to_bytes(
-        8, "big")
-    words = [int.from_bytes(padded[i:i + 4], "big")
-             for i in range(0, len(padded), 4)]
-    return torch.tensor(words, dtype=torch.int64, device=dev)[:, None]
+def _sha_words(msgs, dev):
+    """Messages of one length, hashlib-style padding -> (nblocks * 16, B)
+    int64 words."""
+    n = len(msgs[0])
+    tail = b"\x80" + b"\x00" * ((55 - n) % 64) + (8 * n).to_bytes(8, "big")
+    words = np.frombuffer(b"".join(m + tail for m in msgs), dtype=">u4")
+    words = words.reshape(len(msgs), -1).T.astype(np.int64)
+    return torch.from_numpy(words).to(dev).contiguous()
+
+
+def sha_cases(dev):
+    """(lanes, blocks) of K4's checks. The kernel serves a batch up to some
+    lane count by its narrow route (a block a lane, stages of 32 message
+    blocks) and more by its wide one; the library says where that is. Both
+    sides of it, several narrow lanes at once, and chains that end at a
+    stage's edge (32, 64), one past it (33) and inside one (97). The last two
+    are timed: a batch of withdrawals (the wide route) and the main path's
+    HashInputs preimage (the narrow one), which is the row reported."""
+    edge = sha256.narrow_route_lanes(dev)
+    return [(LANES, 1), (4, 5), (edge, 2), (edge + 1, 2), (1, 1), (1, 3),
+            (1, 32), (1, 33), (1, 64), (1, 97), SHA_WITHDRAW, (1, SHA_BLOCKS)]
 
 
 def check_sha(dev, rng):
-    # ragged lanes: 1 block x 1000 lanes
-    words = torch.cat([_sha_words(rng.randbytes(40), dev)
-                       for _ in range(LANES)], dim=1).contiguous()
-    compare("sha256_chain", f"nblocks=1 B={LANES}",
-            lambda: sha256.sha256_chain(words, 1),
-            lambda: sha256.sha256_chain_plain(words, 1), 5, timed=False)
-    # single chains, the last at the main path's HashInputs preimage
-    for nblocks in (1, 3, SHA_BLOCKS):
-        msg = rng.randbytes(64 * nblocks - 9)
-        words = _sha_words(msg, dev)
-        # one lane is one serial chain of rounds: its latency is the bound
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    int32_rate = INT32_LANES_PER_SM * sms * rates["clock_hz"]
+    for lanes, nblocks in sha_cases(dev):
+        msgs = [rng.randbytes(64 * nblocks - 9) for _ in range(lanes)]
+        words = _sha_words(msgs, dev)
+        # a lane is one serial chain of rounds, whose latency binds a narrow
+        # batch; a wide one is bound by its count of integer operations
         chain_s = (nblocks * 64 * SHA_DEPENDENT_OPS * ALU_LATENCY_CLOCKS
                    / rates["clock_hz"])
-        got = compare("sha256_chain", f"nblocks={nblocks} B=1",
+        ops_s = lanes * nblocks * SHA_BLOCK_OPS / int32_rate
+        got = compare("sha256_chain", f"nblocks={nblocks} B={lanes}",
                       lambda: sha256.sha256_chain(words, nblocks),
-                      lambda: sha256.sha256_chain_plain(words, nblocks), 5,
-                      timed=nblocks == SHA_BLOCKS,
-                      bound_of=(chain_s, nbytes(words) + 8 * 8))
-        digest = b"".join(int(v).to_bytes(4, "big")
-                          for v in got[:, 0].cpu().tolist())
-        assert digest == hashlib.sha256(msg).digest(), "SHA-256 != hashlib"
+                      lambda: sha256.sha256_chain_plain(words, nblocks),
+                      50 if (lanes, nblocks) == SHA_WITHDRAW else 5,
+                      timed=(lanes, nblocks) in (SHA_WITHDRAW,
+                                                 (1, SHA_BLOCKS)),
+                      bound_of=(max(chain_s, ops_s),
+                                nbytes(words) + 8 * 8 * lanes))
+        state = got.cpu().tolist()
+        for lane in range(0, lanes, max(1, lanes // 32)):
+            digest = b"".join(row[lane].to_bytes(4, "big") for row in state)
+            assert digest == hashlib.sha256(msgs[lane]).digest(), \
+                f"SHA-256 != hashlib (lane {lane}/{lanes}, {nblocks} blocks)"
 
 
 def check_full_rounds(dev, rng):
@@ -591,6 +678,7 @@ def measure_rates(dev) -> None:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True)
+    rates["chain_ns"] = chain_ns[0]
     rates["clock_hz"] = float(res.stdout.strip().splitlines()[0]) * 1e6
     reckoned = (INT32_LANES_PER_SM * sms * rates["clock_hz"] / MONT_MUL_SLOTS)
     print("fr_mont_mul rate: measured "

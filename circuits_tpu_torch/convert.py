@@ -233,6 +233,42 @@ def comb_table() -> np.ndarray:
     return tab
 
 
+def bjj_a1_constants() -> tuple[int, int]:
+    """(sqrt(a), d / a) of BabyJubJub. a = 168700 is a square mod p, so
+    (x, y) -> (sqrt(a) x, y) carries a x^2 + y^2 = 1 + d x^2 y^2 to
+    x^2 + y^2 = 1 + (d / a) x^2 y^2; d / a is no square, so the addition law
+    stays complete. The smaller of the two roots is taken."""
+    root = scalar.fsqrt(babyjub.A)
+    assert root is not None and root * root % scalar.P == babyjub.A
+    return (min(root, scalar.P - root),
+            babyjub.D * pow(babyjub.A, -1, scalar.P) % scalar.P)
+
+
+COMB_ELEMS = 64 * 16 * 3  # elements of kernel K3's comb block
+
+
+@lru_cache(maxsize=None)
+def eddsa_kernel_words() -> np.ndarray:
+    """Kernel K3's constant block (COMB_ELEMS + 2, 8) uint32, each element 8
+    Montgomery words. The kernel works on the a = 1 form of the curve
+    (`bjj_a1_constants`): entry (j, d) of the comb table is the three
+    elements x' = sqrt(a) x, y and (d / a) x' y of (x, y) = d * 16^j * BASE8
+    (`comb_table`), and the last two elements are sqrt(a) and d / a. Layout
+    must match csrc/eddsa.cu."""
+    root, d1 = bjj_a1_constants()
+    rinv = pow(scalar.R, -1, scalar.P)
+    tab = comb_table().astype(object)
+    rows = []
+    for entry in tab.reshape(-1, 2, N_LIMBS):
+        x, y = (scalar.from_limbs([int(w) for w in c]) * rinv % scalar.P
+                for c in entry)
+        x1 = root * x % scalar.P
+        rows += [_mont_words(x1), _mont_words(y),
+                 _mont_words(d1 * x1 * y % scalar.P)]
+    rows += [_mont_words(root), _mont_words(d1)]
+    return np.array(rows, dtype=np.uint32)
+
+
 def limbs_to_words(limbs: np.ndarray) -> np.ndarray:
     """(..., 16) 16-bit limbs -> (..., 8) 32-bit words."""
     limbs = limbs.astype(np.uint32)

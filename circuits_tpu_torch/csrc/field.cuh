@@ -28,16 +28,11 @@ __device__ __forceinline__ uint32_t p_word(int i) {
 
 constexpr uint32_t FR_N0 = 0xefffffffu;  // -p^-1 mod 2^32
 
-// Montgomery forms of 1 (R mod p) and R^2 mod p, and of the BabyJubJub
-// curve constants a = 168700, d = 168696.
+// Montgomery forms of 1 (R mod p) and R^2 mod p.
 #define CTPU_MONT_ONE {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, \
                        0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}
 #define CTPU_R2 {0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u, \
                  0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u}
-#define CTPU_BJJ_A {0xfff261e0u, 0x95accf61u, 0x9df7d378u, 0x24780d65u, \
-                    0x7e906ae8u, 0xe0ac11b0u, 0x16d3def3u, 0x0f35db22u}
-#define CTPU_BJJ_D {0xaff261f5u, 0x2735f484u, 0x9a2e0f63u, 0x70ba1b57u, \
-                    0x1e2caa8cu, 0xff41c9a9u, 0x8fe6025fu, 0x07704a8eu}
 
 __device__ __forceinline__ void fr_copy(uint32_t r[8], const uint32_t a[8]) {
 #pragma unroll

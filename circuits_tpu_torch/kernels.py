@@ -124,6 +124,7 @@ def lib() -> ctypes.CDLL:
             "ctpu_smt_chain": [P, P, P, P, P, P, P, P, I, I, L, P],
             "ctpu_eddsa_check": [P, P, P, P, P, P, P, P, L, P],
             "ctpu_sha256_chain": [P, P, I, L, P],
+            "ctpu_sha256_narrow_lanes": [P],
             "ctpu_rounds_init": [P, I],
             "ctpu_rounds_vpu": [P, P, I, L, P],
             "ctpu_rounds_mxu": [P, P, P, P, P, I, L, P],

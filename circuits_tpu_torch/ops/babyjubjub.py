@@ -4,8 +4,10 @@ Port of `circuits_tpu/ops/babyjubjub.py` (circomlib EdDSAPoseidonVerifier,
 Bits2Point_Strict). Points are projective (X : Y : Z), coordinates in
 Montgomery form, each (16, *batch). The group check S * B8 == R8 + hm * A
 runs in `eddsa_ok_mont`, the wrapper of kernel K3 (csrc/eddsa.cu), whose
-plain version `eddsa_ok_mont_plain` uses the same algorithm and formulas:
-fixed-base comb over the host table, windowed variable-base Horner.
+plain version `eddsa_ok_mont_plain` uses the same algorithm: fixed-base
+comb over the host table, windowed variable-base Horner. The kernel walks
+the curve in its a = 1 form (x scaled by sqrt(a)), where every Y and Z is
+the plain version's and every X is sqrt(a) times it; the verdict is the same.
 
 S is read as 253 bits, as circomlib's Num2Bits(253) does and as the JAX
 package's XLA path does (its Pallas kernel reads 256; see ROADMAP F2).
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..convert import comb_table, limbs_to_words
+from ..convert import comb_table, eddsa_kernel_words
 from ..field import fr
 from ..builder import babyjub
 from .poseidon import poseidon
@@ -30,13 +32,13 @@ S_BITS = 253
 
 @lru_cache(maxsize=None)
 def _comb(device: torch.device, words: bool) -> torch.Tensor:
-    """The comb table on `device`: (64, 16, 2, 16) int64 limbs, or
-    (64, 16, 2, 8) int32-stored 32-bit words for the kernel."""
-    tab = comb_table()
+    """The comb table on `device`: (64, 16, 2, 16) int64 limbs for the
+    plain version, or the kernel's constant block
+    (`convert.eddsa_kernel_words`) as int32-stored 32-bit words."""
     if words:
-        w = limbs_to_words(tab)  # (64, 16, 2, 8) uint32
+        w = eddsa_kernel_words()  # (64 * 16 * 3 + 2, 8) uint32
         return torch.from_numpy(w.view(np.int32).copy()).to(device)
-    return torch.from_numpy(tab.astype(np.int64)).to(device)
+    return torch.from_numpy(comb_table().astype(np.int64)).to(device)
 
 
 def _mm_batch(pairs):

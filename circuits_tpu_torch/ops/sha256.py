@@ -8,6 +8,7 @@ version is `sha256_chain_plain`.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 
@@ -72,6 +73,19 @@ def sha256_chain(words: torch.Tensor, nblocks: int) -> torch.Tensor:
         kernels.ptr(words), kernels.ptr(out), nblocks, b,
         kernels.stream_ptr(dev)))
     return out
+
+
+def narrow_route_lanes(device: torch.device) -> int:
+    """The largest lane count that kernel K4 serves on `device` by its
+    narrow route (a block a lane); one lane more takes the wide route (a
+    thread a lane). The kernel chooses by itself: this is for the checks
+    that sit on both sides of the choice."""
+    so = kernels.prepare(device)
+    lanes = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        kernels.check(so.ctpu_sha256_narrow_lanes(ctypes.byref(lanes)),
+                      "ctpu_sha256_narrow_lanes")
+    return lanes.value
 
 
 def sha256_bits(bits: torch.Tensor) -> torch.Tensor:

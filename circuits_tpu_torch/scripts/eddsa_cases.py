@@ -1,0 +1,53 @@
+"""Hard inputs for the EdDSA check (kernel K3, ops/babyjubjub.py), built
+from the host curve code: the same lanes go to the plain version against the
+JAX package on the CPU, to the kernel against the plain version on the card
+(tests/test_torch_eddsa.py, tests/test_torch_cuda.py) and to chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+from ..builder import babyjub
+from ..field import fr, scalar
+
+
+def edge_lanes(rng):
+    """K3's edge lanes as (name, (ax, ay, s, r8x, r8y, hm), verdict), all
+    integers. hm is given, not hashed, so that it can be 0 or have every
+    digit below the top one at its maximum; the verdict is the host curve
+    code's, None where it has none (A off the curve)."""
+    order = babyjub.SUB_ORDER
+    k, r = rng.randrange(1, order), rng.randrange(1, order)
+    a_pt = babyjub.mul_point(k, babyjub.BASE8)
+    r_pt = babyjub.mul_point(r, babyjub.BASE8)
+    hm = rng.randrange(scalar.P)
+    top = (3 << 252) - 1  # digits 2, 15, 15, ...: the largest such hm < p
+    ident = babyjub.IDENTITY
+    hm_a = babyjub.mul_point(hm, a_pt)
+    minus_hm_a = ((-hm_a[0]) % scalar.P, hm_a[1])
+    lanes = [
+        ("valid", a_pt, (r + hm * k) % order, r_pt, hm, True),
+        ("A off the curve", (5, 7), r, r_pt, hm, None),
+        ("A = (0, 1)", ident, r, r_pt, hm, True),
+        ("A = (0, 1), wrong S", ident, r + 1, r_pt, hm, False),
+        ("R8 = (0, 1)", a_pt, hm * k % order, ident, hm, True),
+        ("R8 = (0, 1), wrong S", a_pt, (hm * k + 1) % order, ident, hm,
+         False),
+        ("hm = 0", a_pt, r, r_pt, 0, True),
+        ("hm = 0, wrong R8", a_pt, r, a_pt, 0, False),
+        ("S = 0", a_pt, 0, minus_hm_a, hm, True),
+        ("S = 0, wrong R8", a_pt, 0, r_pt, hm, False),
+        ("every hm digit 15", a_pt, (r + top * k) % order, r_pt, top, True),
+        ("every hm digit 15, wrong S", a_pt, (r + top * k + 1) % order, r_pt,
+         top, False),
+    ]
+    return [(name, (a[0], a[1], s, r8[0], r8[1], h), verdict)
+            for name, a, s, r8, h, verdict in lanes]
+
+
+def kernel_args(rows, dev):
+    """`eddsa_ok_mont`'s arguments for rows of integers (ax, ay, s, r8x,
+    r8y, hm): coordinates to Montgomery form, s and hm canonical."""
+    ax, ay, s, r8x, r8y, hm = (fr.pack([row[k] for row in rows], dev)
+                               for k in range(6))
+    m = [fr.to_mont(c).contiguous() for c in (ax, ay, r8x, r8y)]
+    return (m[0], m[1], s.contiguous(), m[2], m[3], hm.contiguous())

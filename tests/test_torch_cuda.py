@@ -8,6 +8,7 @@ machine that has none:
 """
 
 import hashlib
+import random
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from circuits_tpu_torch.builder import babyjub
 from circuits_tpu_torch.field import fr, scalar
 from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
                                     sha256, smt)
-from circuits_tpu_torch.scripts import exp_mxu_inkernel
+from circuits_tpu_torch.scripts import eddsa_cases, exp_mxu_inkernel
 
 from torch_compare import (SUITE_CONFIG, assert_same, oracle_outputs,
                            suite_batches)
@@ -97,11 +98,32 @@ def test_eddsa_kernel_matches_plain(cuda):
     assert got.tolist() == [True, False, True, False] * 2
 
 
-@pytest.mark.parametrize("nblocks", [1, 3])
-def test_sha256_kernel_matches_plain_and_hashlib(cuda, nblocks):
+@pytest.mark.parametrize("lanes", [1, 5, 33])
+def test_eddsa_kernel_edge_lanes(cuda, lanes):
+    """The edge lanes (A off the curve, A or R8 the identity, hm = 0, S = 0,
+    every hm digit below the top one 15, each with a wrong twin), repeated
+    up to `lanes`: fewer lanes than a warp holds, and a ragged last warp."""
+    edge = eddsa_cases.edge_lanes(random.Random(lanes))
+    edge = [edge[i % len(edge)] for i in range(lanes)]
+    args = eddsa_cases.kernel_args([row for _, row, _ in edge], cuda)
+    got = babyjubjub.eddsa_ok_mont(*args)
+    assert_same(got, babyjubjub.eddsa_ok_mont_plain(*args))
+    for (name, _, want), ok in zip(edge, got.tolist()):
+        assert want is None or ok == want, name
+
+
+# (lanes, blocks): both routes of the kernel ("edge" is the last lane count
+# of the narrow route as the library reports it, "past" the first of the
+# wide one), several narrow lanes, chains that end at, past and inside a stage
+@pytest.mark.parametrize("lanes,nblocks", [
+    (LANES, 1), (LANES, 3), (4, 5), ("edge", 2), ("past", 2), (1, 32),
+    (1, 33), (2, 97), (4096, 2)])
+def test_sha256_kernel_matches_plain_and_hashlib(cuda, lanes, nblocks):
+    if isinstance(lanes, str):
+        lanes = sha256.narrow_route_lanes(cuda) + (lanes == "past")
     rng = np.random.default_rng(nblocks)
     msgs = [rng.integers(0, 256, 64 * nblocks - 9, dtype=np.uint8).tobytes()
-            for _ in range(LANES)]
+            for _ in range(lanes)]
     words = torch.tensor(
         [[int.from_bytes(m + b"\x80" + (8 * len(m)).to_bytes(8, "big"))
           >> (32 * (16 * nblocks - 1 - w)) & 0xFFFFFFFF
@@ -109,8 +131,10 @@ def test_sha256_kernel_matches_plain_and_hashlib(cuda, nblocks):
         dtype=torch.int64, device=cuda)
     got = sha256.sha256_chain(words, nblocks)
     assert_same(got, sha256.sha256_chain_plain(words, nblocks))
-    digest = b"".join(int(v).to_bytes(4, "big") for v in got[:, 7].tolist())
-    assert digest == hashlib.sha256(msgs[7]).digest()
+    for lane in {0, lanes // 2, lanes - 1}:
+        digest = b"".join(int(v).to_bytes(4, "big")
+                          for v in got[:, lane].tolist())
+        assert digest == hashlib.sha256(msgs[lane]).digest()
 
 
 def test_engine_on_cuda_matches_builder_through_the_kernels(cuda):
