@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,26 @@ Phases (any failure raises, and the exit code is then non-zero):
     exactly against its plain version at 1000 lanes x 3 rounds and at
     65536 x 16 (timed), both against the bigint mirror and each other;
     then its entry point `circuits_tpu_torch.scripts.exp_mxu_inkernel`
-    at 65536 x 16, which must launch both kernels.
+    at 65536 x 16, which must launch both kernels;
+ 8. Withdraw(32) on the card: `WithdrawEngine(32).run` on 32768 withdrawal
+    lanes out of one exit tree of as many leaves, built on the host from
+    the seed (scripts/withdraw_cases.py): every ok True and every hash
+    exact against the builder's `hash_inputs_withdraw`; a second run with
+    known lanes tampered (balance, sibling, idx, idx past 2^nLevels) refuses
+    exactly those; K1 and K4 launched (K4 once, above its narrow route's
+    lane limit, so on its wide route) and K2, K3 not; the same on one lane
+    (K4's narrow route); the path's K1 and K4 calls recorded; `run_packed`
+    timed (median of 5, each ending in a host copy of the hashes), and its
+    layers (state hash, verifier, hash) each on their own;
+ 9. the debug paths on phase 4's batch: `_full_debug` gives `run`'s
+    outputs and verdict, `trace` agrees with the builder's input on
+    lane_ok, decode.fromIdx and the chain of newStateRoot, `check_batch`
+    on phase 5's tampered batch names lane 5 and no other; then the
+    witness vector at a smaller depth with the widths kept:
+    `export_witness` -> `write_wtns` -> `load_witness` -> `verify_witness`
+    (pure Python) on a RollupMain(16, 32, 8, 4) batch and
+    `export_witness_withdraw` -> `verify_withdraw_witness` on 8 lanes of
+    phase 8, each of which must pass and must fail with one value changed.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -60,6 +79,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -68,17 +88,26 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from circuits_tpu_torch import kernels  # noqa: E402
-from circuits_tpu_torch.engine.witness import RollupEngine  # noqa: E402
+from circuits_tpu_torch.engine import witness_vector  # noqa: E402
+from circuits_tpu_torch.engine.witness import (RollupEngine,  # noqa: E402
+                                               WithdrawEngine)
 from circuits_tpu_torch.builder import babyjub, float40  # noqa: E402
 from circuits_tpu_torch.builder.account import HermezAccount  # noqa: E402
 from circuits_tpu_torch.builder.rollup_db import RollupDB  # noqa: E402
 from circuits_tpu_torch.builder.smt import SMT  # noqa: E402
+from circuits_tpu_torch.builder.withdraw_utils import (  # noqa: E402
+    hash_inputs_withdraw)
 from circuits_tpu_torch.field import fr, scalar  # noqa: E402
+from circuits_tpu_torch.models import hash_inputs  # noqa: E402
+from circuits_tpu_torch.models.rollup_tx import hash_state  # noqa: E402
 from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
                                     poseidon_constants, poseidon_rounds,
                                     sha256, smt)
+from circuits_tpu_torch.r1cs.checker import check_batch  # noqa: E402
+from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
+    verify_withdraw_witness, verify_witness)
 from circuits_tpu_torch.scripts import (eddsa_cases,  # noqa: E402
-                                        exp_mxu_inkernel)
+                                        exp_mxu_inkernel, withdraw_cases)
 
 LANES = 1000
 RAGGED = (1, 33)  # lane counts below a warp's and a block's lanes
@@ -140,6 +169,12 @@ SHA_BLOCK_OPS = 64 * 14 + 48 * 10 + 64
 # (`hash_inputs_withdrawal` of the JAX package); the lane count is the one K3
 # is filled at. This is the shape that K4's wide route is for.
 SHA_WITHDRAW = (32768, 2)
+WITHDRAW_LANES = SHA_WITHDRAW[0]
+# the witness vector's depth: the widths of the production batch (nLevels
+# 32, 736-bit L1 data), 16 tx lanes, since its checker re-derives every
+# Poseidon, SMT proof and EdDSA check in Python integers
+EXPORT_CONFIG = (16, N_LEVELS, 8, 4)
+EXPORT_WITHDRAW_LANES = 8
 
 
 def poseidon_products(t: int) -> int:
@@ -241,11 +276,16 @@ POSEIDON_MAIN_PATH = [(3, 4096), (4, 8192), (5, 4096), (6, 2048), (7, 2048)]
 # lane counts that fill the card (more warps than a scheduler can hide
 # behind), to tell what the main path's small calls cost K1
 POSEIDON_FILLED = [(3, 65536), (7, 32768)]
+# (t, lanes) of a Withdraw(32) batch's Poseidon calls at 32768 lanes: t=3 a
+# level of the verifier (33 calls), t=4 the two leaf hashes, t=5 HashState
+POSEIDON_WITHDRAW = [(3, WITHDRAW_LANES), (4, WITHDRAW_LANES),
+                     (5, WITHDRAW_LANES)]
 
 
 def check_poseidon(dev, rng):
     shapes = [(t, lanes) for t in range(3, 8) for lanes in RAGGED + (LANES,)]
-    timed = POSEIDON_FILLED + POSEIDON_MAIN_PATH  # the last one is reported
+    # the last one is reported
+    timed = POSEIDON_FILLED + POSEIDON_WITHDRAW + POSEIDON_MAIN_PATH
     for t, lanes in shapes + timed:
         vals = [[rng.randrange(scalar.P) for _ in range(lanes)]
                 for _ in range(t)]
@@ -385,28 +425,42 @@ def check_smt(dev, rng):
             [o["new_root"] for o in sub]
 
 
+def record_calls(run):
+    """`run()` with the K1, K2 and K4 wrappers recorded: a count of K1's
+    calls by (t, lanes), the arguments of K2's calls, a count of K4's calls
+    by (blocks, lanes)."""
+    k1, k4 = collections.Counter(), collections.Counter()
+    chain_calls = []
+    real = poseidon.permute_mont, smt.processor_chain, sha256.sha256_chain
+
+    def permute(state):
+        k1[tuple(state.shape[1:])] += 1
+        return real[0](state)
+
+    def chain(*cargs):
+        chain_calls.append(cargs)
+        return real[1](*cargs)
+
+    def sha(words, nblocks):
+        k4[(nblocks, words.shape[1])] += 1
+        return real[2](words, nblocks)
+
+    poseidon.permute_mont, smt.processor_chain = permute, chain
+    sha256.sha256_chain = sha
+    try:
+        run()
+        sync()
+    finally:
+        poseidon.permute_mont, smt.processor_chain = real[:2]
+        sha256.sha256_chain = real[2]
+    return k1, chain_calls, k4
+
+
 def check_main_path_calls(dev, engine, packed):
     """One more run of the batch with the K1 and K2 wrappers recorded: the
     shapes and counts of the main path's Poseidon calls, and K2 checked
     and timed on the batch's own widest call, whose masks give its bound."""
-    shapes = collections.Counter()
-    chain_calls = []
-    real_permute, real_chain = poseidon.permute_mont, smt.processor_chain
-
-    def permute(state):
-        shapes[tuple(state.shape[1:])] += 1
-        return real_permute(state)
-
-    def chain(*cargs):
-        chain_calls.append(cargs)
-        return real_chain(*cargs)
-
-    poseidon.permute_mont, smt.processor_chain = permute, chain
-    try:
-        engine.run_packed(packed)
-        sync()
-    finally:
-        poseidon.permute_mont, smt.processor_chain = real_permute, real_chain
+    shapes, chain_calls, _ = record_calls(lambda: engine.run_packed(packed))
     print("main path's Poseidon calls (t, lanes) x count: "
           + ", ".join(f"{k} x {v}" for k, v in sorted(shapes.items())),
           flush=True)
@@ -602,6 +656,233 @@ def check_full_rounds(dev, rng):
     return launches
 
 
+def median_s(fn, reps: int = 5) -> float:
+    """Median host seconds of `fn()` over `reps` synchronised calls; the
+    caller has made a warm-up call."""
+    return statistics.median(plain_ms(fn) for _ in range(reps)) * 1e-3
+
+
+def check_withdraw(rng, card):
+    """Phase 8: Withdraw(nLevels = 32) through `WithdrawEngine` on the card
+    at 32768 lanes and at one. Returns (the engine, the valid lanes, the
+    kernels' launches of one 32768-lane `run`)."""
+    t0 = time.perf_counter()
+    lanes = withdraw_cases.exit_tree_batch(rng, WITHDRAW_LANES, N_LEVELS)
+    want = [hash_inputs_withdraw(d) for d in lanes]
+    depths = [len(d["siblingsState"]) for d in lanes]
+    print(f"exit tree: {WITHDRAW_LANES} distinct leaves, one withdrawal a "
+          f"leaf (none repeated), proofs of {min(depths)}-{max(depths)} "
+          f"siblings, built on the host in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    engine = WithdrawEngine(N_LEVELS)  # no device named: the card
+    dev = engine.device
+    edge = sha256.narrow_route_lanes(dev)
+    assert 1 <= edge < WITHDRAW_LANES, edge
+
+    def run_counted(batch):
+        kernels.reset_launches()
+        hashes, ok = engine.run(batch)
+        sync()
+        assert isinstance(ok, np.ndarray) and ok.dtype == np.bool_
+        assert ok.shape == (len(batch),) and len(hashes) == len(batch)
+        counts = dict(kernels.launches)
+        assert counts["poseidon_permute"] > 0, counts
+        assert counts["sha256_chain"] == 1, counts
+        assert counts["smt_chain"] == 0 and counts["eddsa_check"] == 0, counts
+        return hashes, ok, counts
+
+    # every lane valid; then known lanes tampered, each kind in turn
+    t0 = time.perf_counter()
+    hashes, ok, launches = run_counted(lanes)
+    t_first = time.perf_counter() - t0
+    assert ok.all(), f"{int((~ok).sum())} valid withdrawals were refused"
+    assert hashes == want, "hash != hash_inputs_withdraw of the builder"
+    bad, kinds = list(lanes), {}
+    for j, lane in enumerate(sorted(rng.sample(range(WITHDRAW_LANES), 64))):
+        kinds[lane] = withdraw_cases.TAMPERS[j % len(withdraw_cases.TAMPERS)]
+        bad[lane] = withdraw_cases.tamper(lanes[lane], kinds[lane], N_LEVELS)
+    hashes_bad, ok_bad, _ = run_counted(bad)
+    assert np.flatnonzero(~ok_bad).tolist() == sorted(kinds), \
+        "the refused lanes are not the tampered ones"
+    assert hashes_bad == [hash_inputs_withdraw(d) for d in bad]
+    print(f"Withdraw({N_LEVELS}) x {WITHDRAW_LANES} lanes on "
+          f"{torch.cuda.get_device_name(0)}: every ok True, every hash EXACT "
+          f"vs builder; {len(kinds)} tampered lanes "
+          f"({', '.join(withdraw_cases.TAMPERS)}) and only those refused; "
+          f"launches={launches}; sha256_chain's narrow route ends at {edge} "
+          "lanes, so this was its wide route", flush=True)
+
+    # one lane, the reference circuit's own shape: K4's narrow route
+    for kind in (None,) + withdraw_cases.TAMPERS:
+        one = lanes[7] if kind is None else \
+            withdraw_cases.tamper(lanes[7], kind, N_LEVELS)
+        h1, ok1, launches1 = run_counted([one])
+        assert h1 == [hash_inputs_withdraw(one)], kind
+        assert bool(ok1[0]) == (kind is None), kind
+    print(f"Withdraw({N_LEVELS}) x 1 lane (sha256_chain's narrow route): ok "
+          f"and hash EXACT vs builder, each tamper refused; "
+          f"launches={launches1}", flush=True)
+
+    # the path's K1 and K4 calls, then its times
+    t0 = time.perf_counter()
+    packed = engine.pack(lanes)
+    sync()
+    t_pack = time.perf_counter() - t0
+    k1, chain_calls, k4 = record_calls(lambda: engine.run_packed(packed))
+    print("Withdraw path's Poseidon calls (t, lanes) x count: "
+          + ", ".join(f"{k} x {v}" for k, v in sorted(k1.items()))
+          + "; SHA-256 calls (blocks, lanes) x count: "
+          + ", ".join(f"{k} x {v}" for k, v in sorted(k4.items())),
+          flush=True)
+    assert not set(POSEIDON_WITHDRAW) - set(k1), k1
+    assert sum(k1.values()) == launches["poseidon_permute"]
+    assert k4 == {(SHA_WITHDRAW[1], WITHDRAW_LANES): 1} and not chain_calls
+
+    def batch():
+        h, k = engine.run_packed(packed)
+        return h.cpu(), k
+
+    reps = [plain_ms(batch) * 1e-3 for _ in range(5)]
+    steady = statistics.median(reps)
+    p = packed
+    zero = torch.zeros_like(p["idx"])
+    on = torch.ones((WITHDRAW_LANES,), dtype=torch.bool, device=dev)
+    state = hash_state(p["token_id"], zero, p["sign"], p["balance"],
+                       p["ay"], p["eth_addr"])
+    layers = {
+        "state hash": lambda: hash_state(
+            p["token_id"], zero, p["sign"], p["balance"], p["ay"],
+            p["eth_addr"]),
+        "verifier": lambda: smt.verifier(
+            on, p["root_exit"], p["siblings_state"], zero, zero, ~on,
+            p["idx"], state, ~on),
+        "its two leaf hashes": lambda: (smt.smt_hash1(p["idx"], state),
+                                        smt.smt_hash1(zero, zero)),
+        "hash": lambda: hash_inputs.hash_inputs_withdrawal(
+            N_LEVELS, p["root_exit"], p["eth_addr"], p["token_id"],
+            p["balance"], p["idx"]),
+    }
+    t_layer = {k: median_s(fn) for k, fn in layers.items()}
+    loop = t_layer["verifier"] - t_layer["its two leaf hashes"]
+    print(f"Withdraw times on {card}: pack {t_pack:.3f} s, first run (pack "
+          f"and unpack included) {t_first:.3f} s, run_packed median "
+          f"{steady:.4f} s over 5 runs {['%.4f' % r for r in reps]} "
+          f"({WITHDRAW_LANES / steady:.1f} withdrawals/s); layers, median of "
+          "5 each: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in t_layer.items())
+          + f"; so the verifier's loop over {N_LEVELS + 1} levels takes about "
+          f"{loop:.4f} s", flush=True)
+
+    # what one launch of K2 would take for that loop: the verifier's chain
+    # is the processor's old chain with masks (top, 0, 0, 0, at) and the
+    # leaf as old1leaf
+    top, at = smt.verifier_states(p["siblings_state"])
+    off = torch.zeros_like(top)
+    leaf = smt.smt_hash1(p["idx"], state).contiguous()
+    cargs = (torch.flip(p["siblings_state"], dims=[0]).contiguous(),
+             torch.flip(fr.bits_le(p["idx"], N_LEVELS + 1), dims=[0]
+                        ).contiguous(),
+             torch.flip(torch.stack([top, off, off, off, at], dim=1),
+                        dims=[0]).long().contiguous(),
+             leaf, leaf, leaf)
+    kernels.reset_launches()
+    old, _ = smt.processor_chain(*cargs)
+    sync()
+    assert torch.equal(old, p["root_exit"]), \
+        "K2's old chain is not the verifier's root"
+    hashes_k2, bound_of = smt_bound_of(cargs)
+    ms = kernel_ms(lambda: smt.processor_chain(*cargs), 5)
+    bound_ms, by = bound(*bound_of)
+    print(f"  smt_chain as the verifier's loop (not on any path): n="
+          f"{N_LEVELS + 1} B={WITHDRAW_LANES}, old chain == rootExit in every "
+          f"lane, {hashes_k2} hashes selected, half of them the new chain's "
+          f"that nobody reads; kernel={ms:.4f} ms bound={bound_ms:.4f} ms "
+          f"({by})", flush=True)
+    return engine, lanes, launches
+
+
+def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
+    """Phase 9: `_full_debug`, `trace`, `get_signal` and `check_batch` on
+    the production batch, then the witness vectors at a smaller depth."""
+    n_tx = engine.params[0]
+    t0 = time.perf_counter()
+    lanes, lane_ok, dout, ok = engine._full_debug(inp)
+    assert bool(ok) and bool(lane_ok.all())
+    assert engine.unpack_outputs(dout) == out, "_full_debug != run"
+    t_debug = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tr = engine.trace(inp)
+    assert set(tr) == set(engine.SIGNALS) | {"lane_ok", "accFeeOut"}
+    assert tr["lane_ok"] == [True] * n_tx
+    assert tr["decode.fromIdx"] == [int(v) for v in inp["fromIdx"]]
+    roots = [int(v) for v in inp["imStateRoot"]] \
+        + [int(inp["imInitStateRootFee"])]
+    assert tr["newStateRoot"] == roots
+    assert engine.get_signal(inp, f"newStateRoot[{n_tx - 1}]") == roots[-1]
+    t_trace = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res = check_batch(engine.pack(bad), *engine.params)
+    assert not res["ok"]
+    assert np.flatnonzero(~res["lane_ok"]).tolist() == [5], \
+        "check_batch does not name the tampered lane alone"
+    assert res["fee_ok"].all() and res["fee_ok"].shape == (engine.params[3],)
+    t_check = time.perf_counter() - t0
+    print(f"debug paths on RollupMain{engine.params}: _full_debug == run "
+          f"({t_debug:.1f} s); trace: lane_ok all True, decode.fromIdx and "
+          f"the chain of newStateRoot as the builder's input, get_signal one "
+          f"lane ({t_trace:.1f} s for both); check_batch on the tampered "
+          f"batch: lane 5 alone, fee_ok all True ({t_check:.1f} s)",
+          flush=True)
+
+    # the witness vectors; their pure-Python checker bounds the depth
+    t0 = time.perf_counter()
+    bb = production_batch(*EXPORT_CONFIG)
+    small = RollupEngine(*EXPORT_CONFIG)
+    names, values = witness_vector.export_witness(small, bb.get_input())
+    assert names == witness_vector.signal_names(*EXPORT_CONFIG)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        wtns, sym = os.path.join(tmp, "w.wtns"), os.path.join(tmp, "w.sym")
+        witness_vector.write_wtns(wtns, values)
+        witness_vector.write_sym(sym, names)
+        size = os.path.getsize(wtns)
+        w = witness_vector.load_witness(wtns, sym)
+    assert w == dict(zip(names, values))
+    assert w["main.hashGlobalInputs"] == bb.get_hash_inputs()
+    assert w["main.newStateRoot"] == bb.get_new_state_root()
+    res = verify_witness(w, *EXPORT_CONFIG)
+    assert res["ok"], res["failures"][:5]
+    w_bad = dict(w)
+    w_bad["main.Tx[0].newStHash1"] = (w["main.Tx[0].newStHash1"] + 1) \
+        % scalar.P
+    assert not verify_witness(w_bad, *EXPORT_CONFIG)["ok"]
+    t_verify = time.perf_counter() - t0
+    print(f"witness vector of RollupMain{EXPORT_CONFIG} from the card: "
+          f"{len(values)} signals, .wtns {size} bytes, export "
+          f"{t_export:.1f} s (host build included); verify_witness passes "
+          f"({res['n_checked']} relations) and fails with one value changed "
+          f"({t_verify:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    sub = [dict(d, ethAddr=int(str(d["ethAddr"]), 0))
+           for d in wlanes[:EXPORT_WITHDRAW_LANES]]
+    names, values = witness_vector.export_witness_withdraw(wengine, sub)
+    assert names == witness_vector.signal_names_withdraw(N_LEVELS, len(sub))
+    w = dict(zip(names, values))
+    res = verify_withdraw_witness(w, N_LEVELS, len(sub))
+    assert res["ok"], res["failures"][:5]
+    w_bad = dict(w)
+    w_bad["main.balance[0]"] += 1
+    assert not verify_withdraw_witness(w_bad, N_LEVELS, len(sub))["ok"]
+    print(f"witness vector of Withdraw({N_LEVELS}) x {len(sub)} lanes from "
+          f"the card: {len(values)} signals; verify_withdraw_witness passes "
+          f"({res['n_checked']} relations) and fails with one value changed "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def production_batch(n_tx, n_levels, max_l1, max_fee):
     """The scripts/exp_production.py recipe: populate n_tx accounts with
     L1 deposits, then one batch of n_tx signed L2 transfers (a ring) with
@@ -780,11 +1061,23 @@ def main() -> None:
     print("full-round experiment (exact):", flush=True)
     launches.update(check_full_rounds(dev, rng))
 
+    # 8 - Withdraw on the card
+    t0 = time.perf_counter()
+    print("Withdraw path:", flush=True)
+    wengine, wlanes, wlaunches = check_withdraw(rng, card)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9 - the debug paths and the witness vectors
+    t0 = time.perf_counter()
+    check_debug_paths(engine, inp, bad, out, wengine, wlanes)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
+                         withdraw_launches=wlaunches[name],
                          max_abs_err=r["err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))

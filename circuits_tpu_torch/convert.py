@@ -1,7 +1,10 @@
 """Parameter and state carry-over between the JAX package and the port.
 
 * `packed_from_jax` turns the JAX `pack_rollup_inputs` dict (numpy or
-  jax arrays, uint32) into the port's tensors and layout.
+  jax arrays, uint32) into the port's tensors and layout;
+  `withdraw_args_to_jax` turns the port's packed Withdraw batch into the
+  JAX `withdraw`'s positional arguments, and `debug_to_numpy` a torch debug
+  dict into the numpy tree that the JAX one compares with.
 * The constant tables of the port -- Poseidon round constants and MDS
   matrices for t = 3..7 in the dense and the sparse schedule, the SHA-256
   K/H0 words and the EdDSA base-8 comb table -- are built here from the
@@ -280,3 +283,28 @@ def packed_from_jax(packed: dict, device=None) -> dict:
     shapes, every array an int64 tensor on `device`."""
     return {k: torch.from_numpy(np.asarray(v).astype(np.int64)).to(device)
             for k, v in packed.items()}
+
+
+WITHDRAW_ARGS = ("root_exit", "eth_addr", "token_id", "balance", "idx",
+                 "sign", "ay", "siblings_state")
+
+
+def withdraw_args_to_jax(packed: dict) -> tuple:
+    """`pack_withdraw_inputs`' dict -> the positional arguments of the JAX
+    package's `withdraw(n_levels, ...)`, numpy uint32 in its layout (the
+    same shapes), so one packed batch feeds both packages."""
+    return tuple(packed[k].detach().cpu().numpy().astype(np.uint32)
+                 for k in WITHDRAW_ARGS)
+
+
+def debug_to_numpy(tree):
+    """A debug tree of the port (nested dicts / tuples of tensors) -> the
+    same tree of numpy arrays: int64 limbs, bits and flags, bool
+    predicates kept bool; compare with the JAX tree value for value."""
+    if isinstance(tree, dict):
+        return {k: debug_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(debug_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

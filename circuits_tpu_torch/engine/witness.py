@@ -1,12 +1,15 @@
-"""Input packing + witness evaluation for RollupMain.
+"""Input packing + witness evaluation for the top-level circuits.
 
-Port of `circuits_tpu/engine/witness.py` (RollupMain part): builder input
-dict (Python ints, camelCase keys of the circom input JSON) -> packed
-int64 limb tensors with the tx lane as batch axis -> one evaluation that
-returns the public outputs and a validity verdict. The entry points run on
-the card ("cuda") unless the caller names another device, and raise where
-there is no card; they never carry on on the CPU by themselves. A caller
-who passes `device="cpu"` (the tests) gets the plain PyTorch versions.
+Port of `circuits_tpu/engine/witness.py`: builder input dict (Python ints,
+camelCase keys of the circom input JSON) -> packed int64 limb tensors with
+the tx (or withdrawal) lane as batch axis -> one evaluation that returns
+the public outputs and a validity verdict. `RollupEngine` evaluates
+RollupMain and reads its signals by name (`trace`, `get_signal`);
+`WithdrawEngine` evaluates a batch of Withdraw instances. The entry points
+run on the card ("cuda") unless the caller names another device, and raise
+where there is no card; they never carry on on the CPU by themselves. A
+caller who passes `device="cpu"` (the tests) gets the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ import numpy as np
 import torch
 
 from ..field import fr
-from ..models.rollup_main import rollup_main
+from ..models.rollup_main import (build_chains, global_tail, rollup_main,
+                                  rollup_main_lanes)
+from ..models.withdraw import withdraw
 
 _SCALARS = ["oldLastIdx", "oldStateRoot", "globalChainID",
             "currentNumBatch", "imInitStateRootFee"]
@@ -96,6 +101,37 @@ def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
     return out
 
 
+_WITHDRAW_FIELD = {"rootExit": "root_exit", "ethAddr": "eth_addr",
+                   "tokenID": "token_id", "balance": "balance", "idx": "idx",
+                   "ay": "ay"}
+
+
+def pack_withdraw_inputs(inputs: list[dict], n_levels: int,
+                         device="cuda") -> dict:
+    """Withdraw input dicts (rootExit, ethAddr, tokenID, balance, idx, sign,
+    ay, siblingsState), one a lane -> the keyword arguments of
+    `models.withdraw.withdraw` on `device`. A value given as a string is
+    read with its base prefix (the builder's hex strings); siblingsState is
+    padded with zeros to nLevels + 1."""
+    device = resolve_device(device)
+    levels = n_levels + 1
+
+    def value(v):
+        return int(str(v), 0) if isinstance(v, str) else int(v)
+
+    out = {name: fr.pack([value(d[k]) for d in inputs], device)
+           for k, name in _WITHDRAW_FIELD.items()}
+    out["sign"] = _flags([d["sign"] for d in inputs], device)
+    rows = []
+    for d in inputs:
+        sib = list(d["siblingsState"])
+        rows.append(sib + [0] * (levels - len(sib)))
+    # (B, L+1) -> (L+1, 16, B)
+    out["siblings_state"] = fr.pack(rows, device).permute(
+        2, 0, 1).contiguous()
+    return out
+
+
 class RollupEngine:
     """RollupMain(nTx, nLevels, maxL1Tx, maxFeeTx) witness engine on one
     device."""
@@ -128,3 +164,180 @@ class RollupEngine:
         res["acc_fee_out"] = [int(v) for v in fr.unpack_np(
             out["acc_fee_out"].movedim(1, 0))]
         return res
+
+    # Signal catalog: dotted trace name -> (group path in the debug lane
+    # dict, circom signal it mirrors). The trace()/get_signal() pair is
+    # the printSignals equivalent (reference
+    # test/helpers/helpers.js:168-188) -- every name reads the value the
+    # corresponding circom signal would hold, per tx lane.
+    SIGNALS = {
+        # DecodeTx (src/decode-tx.circom)
+        "decode.fromIdx": (("decode", "from_idx"), "Decoder[i].fromIdx"),
+        "decode.toIdx": (("decode", "to_idx"), "Decoder[i].toIdx"),
+        "decode.tokenID": (("decode", "token_id"), "Decoder[i].tokenID"),
+        "decode.nonce": (("decode", "nonce"), "Decoder[i].nonce"),
+        "decode.userFee": (("decode", "user_fee"), "Decoder[i].userFee"),
+        "decode.amount": (("decode", "amount"), "Decoder[i].amount"),
+        "decode.toBjjSign": (("decode", "to_bjj_sign"),
+                             "Decoder[i].toBjjSign"),
+        "decode.sigL2Hash": (("decode", "sig_l2_hash"),
+                             "Decoder[i].sigL2Hash"),
+        "decode.newAccountIdx": (("decode", "out_idx"),
+                                 "Decoder[i].outIdx"),
+        "decode.txCompressedDataV2": (("decode", "tx_compressed_data_v2"),
+                                      "Decoder[i].txCompressedDataV2"),
+        # RollupTxStates (src/rollup-tx-states.circom)
+        "states.key1": (("tx", "states", "key1"), "Tx[i].states.key1"),
+        "states.key2": (("tx", "states", "key2"), "Tx[i].states.key2"),
+        "states.P1_fnc0": (("tx", "states", "p1_fnc0"),
+                           "Tx[i].states.P1_fnc0"),
+        "states.P1_fnc1": (("tx", "states", "p1_fnc1"),
+                           "Tx[i].states.P1_fnc1"),
+        "states.P2_fnc0": (("tx", "states", "p2_fnc0"),
+                           "Tx[i].states.P2_fnc0"),
+        "states.P2_fnc1": (("tx", "states", "p2_fnc1"),
+                           "Tx[i].states.P2_fnc1"),
+        "states.isExit": (("tx", "states", "is_exit"),
+                          "Tx[i].states.isExit"),
+        "states.verifySignEnabled": (("tx", "states",
+                                      "verify_sign_enabled"),
+                                     "Tx[i].states.verifySignEnabled"),
+        "states.nullifyLoadAmount": (("tx", "states",
+                                      "nullify_load_amount"),
+                                     "Tx[i].states.nullifyLoadAmount"),
+        "states.nullifyAmount": (("tx", "states", "nullify_amount"),
+                                 "Tx[i].states.nullifyAmount"),
+        # BalanceUpdater (src/balance-updater.circom)
+        "balanceUpdater.newStBalanceSender": (
+            ("tx", "balance", "new_balance_sender"),
+            "Tx[i].balancesUpdater.newStBalanceSender"),
+        "balanceUpdater.newStBalanceReceiver": (
+            ("tx", "balance", "new_balance_receiver"),
+            "Tx[i].balancesUpdater.newStBalanceReceiver"),
+        "balanceUpdater.fee2Charge": (("tx", "balance", "fee2_charge"),
+                                      "Tx[i].balancesUpdater.fee2Charge"),
+        "balanceUpdater.isP2Nop": (("tx", "balance", "is_p2_nop"),
+                                   "Tx[i].balancesUpdater.isP2Nop"),
+        "balanceUpdater.isAmountNullified": (
+            ("tx", "balance", "is_amount_nullified"),
+            "Tx[i].balancesUpdater.isAmountNullified"),
+        "decodeLoadAmount": (("tx", "balance", "load_amount"),
+                             "Tx[i].decodeLoadAmountF.out"),
+        # HashState instances (src/lib/hash-state.circom)
+        "oldStHash1": (("tx", "old_state_hash1"), "Tx[i].oldStHash1.out"),
+        "oldStHash2": (("tx", "old_state_hash2"), "Tx[i].oldStHash2.out"),
+        "newStHash1": (("tx", "new_state_hash1"), "Tx[i].newStHash1.out"),
+        "newStHash2": (("tx", "new_state_hash2"), "Tx[i].newStHash2.out"),
+        # EdDSA / SMT (src/rollup-tx.circom phases F, J)
+        "sigAx": (("tx", "sig_ax"), "Tx[i].getAx.ax"),
+        "processor1.newRoot": (("tx", "p1_new_root"),
+                               "Tx[i].processor1.newRoot"),
+        "processor2.newRoot": (("tx", "p2_new_root"),
+                               "Tx[i].processor2.newRoot"),
+        # lane outputs
+        "newStateRoot": (("new_state_root",), "Tx[i].newStateRoot"),
+        "newExitRoot": (("new_exit_root",), "Tx[i].newExitRoot"),
+        "outIdx": (("out_idx",), "Decoder[i].outIdx"),
+        "isAmountNullified": (("is_amount_nullified",),
+                              "Tx[i].isAmountNullified"),
+    }
+
+    def _trace_lanes(self, inp: dict):
+        """The lane phases with every intermediate kept: (lanes debug dict,
+        lane_ok (T,))."""
+        n_tx, n_levels, _, max_fee_tx = self.params
+        packed = self.pack(inp)
+        chains = build_chains(packed, n_tx, max_fee_tx)
+        return rollup_main_lanes(packed, chains, n_tx, n_levels, max_fee_tx,
+                                 debug=True)
+
+    def _full_debug(self, inp: dict):
+        """One debug evaluation of the WHOLE circuit (lanes + fee phase +
+        global hash) with every intermediate kept -- the witness-vector
+        export path (engine/witness_vector.py). Returns (lanes, lane_ok,
+        outputs, ok)."""
+        n_tx, n_levels, max_l1_tx, max_fee_tx = self.params
+        packed = self.pack(inp)
+        chains = build_chains(packed, n_tx, max_fee_tx)
+        lanes, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
+                                           max_fee_tx, debug=True)
+        out, tail_ok = global_tail(packed, lanes, n_tx, n_levels, max_l1_tx,
+                                   max_fee_tx, debug=True)
+        ok = lane_ok.all() & tail_ok & (packed["im_on_chain"] <= 1).all()
+        return lanes, lane_ok, out, ok
+
+    @staticmethod
+    def _lookup(lanes: dict, path: tuple):
+        v = lanes
+        for p in path:
+            v = v[p]
+        return v
+
+    @staticmethod
+    def _to_host(arr) -> list:
+        """One signal's tensor -> per-lane list of host ints. A field
+        signal is (16, T) limbs and a flag signal (T,); both may be int64
+        here, so the number of axes tells them apart, not the leading size
+        (a flag over 16 lanes is (16,) too)."""
+        a = fr.to_numpy(arr)
+        if a.ndim == 2:
+            return [int(v) for v in fr.unpack_np(a)]
+        return [int(v) for v in a.reshape(-1)]
+
+    def trace(self, inp: dict) -> dict:
+        """Signal-level introspection (the printSignals equivalent,
+        reference test/helpers/helpers.js:168-188): every SIGNALS entry
+        as a per-lane list of host ints, plus lane_ok / accFeeOut."""
+        lanes, lane_ok = self._trace_lanes(inp)
+        res = {"lane_ok": fr.to_numpy(lane_ok).tolist()}
+        for name, (path, _) in self.SIGNALS.items():
+            res[name] = self._to_host(self._lookup(lanes, path))
+        acc = fr.to_numpy(lanes["acc_fee_out"])  # (F, 16, T)
+        res["accFeeOut"] = [self._to_host(acc[f])
+                            for f in range(acc.shape[0])]
+        return res
+
+    def get_signal(self, inp: dict, name: str):
+        """Read one named signal for every tx lane. `name` is a SIGNALS
+        key, optionally suffixed "[i]" for a single lane
+        (e.g. "states.key1[2]")."""
+        lane = None
+        if name.endswith("]") and "[" in name:
+            base, idx = name[:-1].rsplit("[", 1)
+            lane, name = int(idx), base
+        if name not in self.SIGNALS:
+            raise KeyError(
+                f"unknown signal {name!r}; catalog: {sorted(self.SIGNALS)}")
+        lanes, _ = self._trace_lanes(inp)
+        vals = self._to_host(self._lookup(lanes, self.SIGNALS[name][0]))
+        return vals if lane is None else vals[lane]
+
+
+class WithdrawEngine:
+    """Withdraw(nLevels) witness engine on one device, batched over
+    withdrawal lanes."""
+
+    def __init__(self, n_levels, device="cuda"):
+        self.n_levels = n_levels
+        self.device = resolve_device(device)
+
+    def pack(self, inputs: list[dict]) -> dict:
+        return pack_withdraw_inputs(inputs, self.n_levels, self.device)
+
+    def run_packed(self, packed: dict, debug: bool = False):
+        """Packed tensors -> (hash (16, B), ok (B,) bool) tensors; with
+        `debug` a third intermediates dict."""
+        return withdraw(self.n_levels, **packed, debug=debug)
+
+    def run(self, inputs: list[dict]):
+        """inputs: list of withdraw input dicts (rootExit, ethAddr,
+        tokenID, balance, idx, sign, ay, siblingsState). Returns
+        (hash list of host ints, ok numpy bool array)."""
+        h, ok = self.run_packed(self.pack(inputs))
+        return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok)
+
+    def run_debug(self, inputs: list[dict]):
+        """Like run() but also returns the intermediates dict (the
+        witness-vector export path)."""
+        h, ok, dbg = self.run_packed(self.pack(inputs), debug=True)
+        return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok), dbg

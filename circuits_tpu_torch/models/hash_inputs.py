@@ -1,7 +1,8 @@
 """HashInputs -- pack the pretended-public inputs and SHA-256 them.
 
 Port of `circuits_tpu/models/hash_inputs.py` (reference:
-src/hash-inputs.circom:23-185). Preimage, big-endian per field:
+src/hash-inputs.circom:23-185, and the Withdraw variant,
+src/withdraw.circom:84-176). RollupMain's preimage, big-endian per field:
   oldLastIdx(48) | newLastIdx(48) | oldStateRoot(256) | newStateRoot(256)
   | newExitRoot(256) | L1TxsFullData | L1L2TxsData | feeTxsData
   (nLevels each) | chainID(16) | currentNumBatch(32)
@@ -49,3 +50,19 @@ def hash_inputs(
     pieces.append(_be_bits(current_num_batch, 32))
     digest = sha256_bits(torch.cat(pieces, dim=0))
     return digest_to_field(digest), ok
+
+
+def hash_inputs_withdrawal(n_levels, root_exit, eth_addr, token_id,
+                           balance, idx):
+    """The Withdraw variant (src/withdraw.circom:84-176): SHA-256 of
+    rootExit(256) | ethAddr(160) | tokenID(32) | balance(192) | idx(48),
+    688 bits, two blocks a lane. Returns (hash_out (16, B), ok (B,))."""
+    ok = fits_bits(idx, n_levels)
+    preimage = torch.cat([
+        _be_bits(root_exit, 256),
+        _be_bits(eth_addr, 160),
+        _be_bits(token_id, 32),
+        _be_bits(balance, 192),
+        _be_bits(idx, MAX_NLEVELS),
+    ], dim=0)
+    return digest_to_field(sha256_bits(preimage)), ok

@@ -1,11 +1,13 @@
-"""Batched SMT processor (circomlib smtprocessor.circom semantics).
+"""Batched SMT processor and verifier (circomlib smtprocessor.circom and
+smtverifier.circom semantics).
 
 Port of `circuits_tpu/ops/smt.py`: the top-down state machine
 (top / old0 / bot / new1 / upd) and the leaf hashes stay here; the
 bottom-up hash chains run in `processor_chain`, the wrapper of kernel K2
 (csrc/smt.cu), whose plain version is `processor_chain_plain`. Both hash
 with the sparse Poseidon schedule and take a level's hashes only where a
-mask can select them.
+mask can select them. `verifier` hashes its one chain level by level
+through `poseidon` (kernel K1).
 """
 
 from __future__ import annotations
@@ -189,3 +191,41 @@ def processor(old_root, siblings, old_key, old_value, is_old0,
         fnc0, fnc1)
     return processor_check(old_root, computed_old, computed_new, enabled,
                            siblings[siblings.shape[0] - 1])
+
+
+def verifier_states(siblings):
+    """SMTVerifierSM, top-down: (top, at), each (n, B) bool. A lane is
+    `top` above its SMTLevIns level and `at` on it, where its leaf sits."""
+    lev_ins = _lev_ins(siblings)
+    top = ~(torch.cumsum(lev_ins.long(), dim=0) > 0)
+    return top, lev_ins
+
+
+def verifier(enabled, root, siblings, old_key, old_value, is_old0,
+             key, value, fnc):
+    """Batched SMTVerifier(n) (circomlib smtverifier.circom), n =
+    siblings.shape[0]: fnc=0 inclusion proof, fnc=1 exclusion proof. Field
+    args (16, B); enabled/is_old0/fnc (B,) 0/1. Returns ok (B,) bool (True
+    where disabled). The leaf sits at the SMTLevIns level and is hashed up
+    through the levels above it, one Poseidon(2) call a level."""
+    n = siblings.shape[0]
+    enabled, fnc, is0 = enabled.bool(), fnc.bool(), is_old0.bool()
+    zero = torch.zeros_like(root)
+
+    bits = fr.bits_le(key, n)
+    leaf_incl = smt_hash1(key, value)
+    leaf_excl = smt_hash1(old_key, old_value)
+    # exclusion with an empty slot: subtree 0; else the other leaf
+    leaf = fr.select(fnc & is0, zero, fr.select(fnc, leaf_excl, leaf_incl))
+    tops, ats = verifier_states(siblings)
+
+    child = zero
+    for i in range(n - 1, -1, -1):
+        h = smt_hash0(fr.select(bits[i], siblings[i], child),
+                      fr.select(bits[i], child, siblings[i]))
+        child = fr.select(ats[i], leaf, fr.select(tops[i], h, zero))
+
+    ok = fr.eq(child, root)
+    # exclusion extra: old_key != key when not isOld0
+    ok = ok & (~fnc | is0 | ~fr.eq(old_key, key))
+    return ok | ~enabled

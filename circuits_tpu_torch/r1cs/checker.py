@@ -1,0 +1,45 @@
+"""Constraint-satisfaction checking.
+
+Port of `circuits_tpu/r1cs/checker.py:check_batch`. The reference
+delegates "is this witness valid" to the R1CS and snarkjs (`Az o Bz = Cz`);
+this engine enforces the same relations as residuals evaluated during
+witness computation: every circom `===` / ForceEqualIfEnabled / Num2Bits
+range constraint appears as a boolean mask. `check_batch` exposes the
+per-lane and per-fee-slot masks for debugging, mirroring the reference's
+negative tests that expect "Constraint doesn't match"
+(test/rollup-main.test.js:679-684, 866-877).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..field import fr
+from ..models.fee_tx import fee_tx
+from ..models.rollup_main import build_chains, rollup_main_lanes
+
+
+def check_batch(packed: dict, n_tx: int, n_levels: int, max_l1_tx: int,
+                max_fee_tx: int) -> dict:
+    """packed: `pack_rollup_inputs`' tensors (their device decides where
+    this runs). Returns dict(ok, lane_ok (nTx,), fee_ok (maxFeeTx,)) as
+    host numpy -- which lane / fee slot violated a constraint."""
+    chains = build_chains(packed, n_tx, max_fee_tx)
+    _, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
+                                   max_fee_tx)
+    fee_old_root = torch.cat([packed["im_init_state_root_fee"],
+                              packed["im_state_root_fee"]], dim=-1)
+    fee_root, fee_ok = fee_tx(
+        fee_old_root, packed["fee_plan_tokens"], packed["fee_idxs"],
+        packed["im_final_acc_fee"], packed["token_id3"], packed["nonce3"],
+        packed["sign3"], packed["balance3"], packed["ay3"],
+        packed["eth_addr3"], packed["siblings3"])
+    # per-slot fee-chain integrity: slot j's output root must equal
+    # imStateRootFee[j] (the last slot's root is the batch output and has
+    # no im pin) -- keeps the mask slot-local so a corrupted fee slot is
+    # attributable (src/rollup-main.circom:419-424)
+    chain_ok = fr.eq(fee_root[:, :-1], packed["im_state_root_fee"])
+    fee_ok = fee_ok & torch.cat([chain_ok, torch.ones_like(chain_ok[:1])])
+    lane_ok, fee_ok = fr.to_numpy(lane_ok), fr.to_numpy(fee_ok)
+    return dict(ok=bool(lane_ok.all() and fee_ok.all()),
+                lane_ok=lane_ok, fee_ok=fee_ok)

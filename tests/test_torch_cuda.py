@@ -1,5 +1,7 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
-and the suite's batches through `RollupEngine` on `cuda`. These tests need a
+the suite's batches through `RollupEngine` on `cuda`, withdrawals through
+`WithdrawEngine` on `cuda`, and `trace` on `cuda` against `trace` on the
+CPU. These tests need a
 CUDA device and skip without one. They import no JAX, so they also run on a
 machine that has none:
 
@@ -15,12 +17,14 @@ import pytest
 import torch
 
 from circuits_tpu_torch import kernels
-from circuits_tpu_torch.engine.witness import RollupEngine
+from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
 from circuits_tpu_torch.builder import babyjub
+from circuits_tpu_torch.builder.withdraw_utils import hash_inputs_withdraw
 from circuits_tpu_torch.field import fr, scalar
 from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
                                     sha256, smt)
-from circuits_tpu_torch.scripts import eddsa_cases, exp_mxu_inkernel
+from circuits_tpu_torch.scripts import (eddsa_cases, exp_mxu_inkernel,
+                                        withdraw_cases)
 
 from torch_compare import (SUITE_CONFIG, assert_same, oracle_outputs,
                            suite_batches)
@@ -163,3 +167,41 @@ def test_full_round_kernels_match_plain_each_other_and_mirror(cuda):
         want = poseidon_rounds.full_rounds_py(
             [vals[e][lane] for e in range(3)], rounds)
         assert [int(got[e, lane]) for e in range(3)] == want, lane
+
+
+@pytest.mark.parametrize("lanes", [1, "past"])
+def test_withdraw_engine_on_cuda_matches_builder(cuda, lanes):
+    """One lane (K4's narrow route) and one lane more than the narrow route
+    serves (its wide route): every valid lane accepted with the builder's
+    hash, each kind of tampered lane refused, through K1 and K4 alone."""
+    n_levels = 16
+    if lanes == "past":
+        lanes = sha256.narrow_route_lanes(cuda) + 1
+    rng = random.Random(lanes)
+    batch = withdraw_cases.exit_tree_batch(rng, max(lanes, 2), n_levels)
+    batch = batch[:lanes]
+    kinds = {}
+    if lanes > 1:
+        for j, lane in enumerate(rng.sample(range(lanes), 8)):
+            kinds[lane] = withdraw_cases.TAMPERS[j % 4]
+            batch[lane] = withdraw_cases.tamper(batch[lane], kinds[lane],
+                                                n_levels)
+    kernels.reset_launches()
+    hashes, ok = WithdrawEngine(n_levels, device=cuda).run(batch)
+    assert isinstance(ok, np.ndarray) and ok.dtype == np.bool_
+    assert np.flatnonzero(~ok).tolist() == sorted(kinds)
+    assert hashes == [hash_inputs_withdraw(d) for d in batch]
+    assert kernels.launches["poseidon_permute"] == 3 + n_levels + 1
+    assert kernels.launches["sha256_chain"] == 1
+    assert kernels.launches["smt_chain"] == 0
+    assert kernels.launches["eddsa_check"] == 0
+
+
+def test_trace_on_cuda_equals_trace_on_cpu(cuda):
+    inp = suite_batches()["l2"].get_input()
+    got = RollupEngine(*SUITE_CONFIG, device=cuda).trace(inp)
+    want = RollupEngine(*SUITE_CONFIG, device="cpu").trace(inp)
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], name
+    assert got["lane_ok"] == [True] * SUITE_CONFIG[0]

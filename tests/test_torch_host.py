@@ -1,6 +1,6 @@
 """The port's own host code (`circuits_tpu_torch/{field/scalar, ops/
-poseidon_constants, builder/*, utils/*}`) against the JAX package's
-originals: the same inputs, made from a seed, give the same results from
+poseidon_constants, builder/*, utils/*, r1cs/constraints,
+r1cs/witness_check}`) against the JAX package's originals: the same inputs, made from a seed, give the same results from
 both copies. All of it is integer arithmetic; every comparison is exact."""
 
 import random
@@ -16,12 +16,16 @@ from circuits_tpu.builder import (account as j_account, babyjub as j_babyjub,
                                   withdraw_utils as j_withdraw_utils)
 from circuits_tpu.field import scalar as j_scalar
 from circuits_tpu.ops import poseidon_constants as j_pc
+from circuits_tpu.r1cs import (constraints as j_constraints,
+                               witness_check as j_wc)
 from circuits_tpu.utils import crypto as j_crypto, sha256_py as j_sha
 from circuits_tpu_torch.builder import (account, babyjub, fee_table, float40,
                                         rollup_db, smt, state_utils, tx_utils,
                                         withdraw_utils)
 from circuits_tpu_torch.field import scalar
 from circuits_tpu_torch.ops import poseidon_constants as pc
+from circuits_tpu_torch.r1cs import constraints, witness_check as wc
+from circuits_tpu_torch.scripts import withdraw_cases
 from circuits_tpu_torch.utils import crypto, native, sha256_py
 
 P = j_scalar.P
@@ -264,3 +268,144 @@ def test_rollup_db_builds_the_same_batch(which):
                    "get_new_exit_root", "get_old_last_idx",
                    "get_new_last_idx"):
         assert getattr(got, getter)() == getattr(want, getter)(), getter
+
+
+# ---------------------------------------------------------------------------
+# r1cs/constraints.py and r1cs/witness_check.py
+# ---------------------------------------------------------------------------
+
+CONSTRAINT_ARGS = {
+    "decode_tx": [(8,), (16,), (32,)],
+    "fee_tx": [(8,), (32,)],
+    "rollup_tx": [(16, 2), (32, 64)],
+    "bits_l1_tx_full_data": [()],
+    "bits_l1l2_tx_data": [(16,), (32,)],
+    "hash_inputs": [(3, 16, 2, 2), (2048, 32, 256, 64)],
+    "im_signals": [(3, 2), (2048, 64)],
+    "total_constraints": [(3, 16, 2, 2), (376, 32, 128, 64),
+                          (2048, 32, 256, 64)],
+}
+
+
+@pytest.mark.parametrize("fn", sorted(CONSTRAINT_ARGS))
+def test_constraint_model(fn):
+    assert sorted(CONSTRAINT_ARGS) == sorted(
+        k for k, v in vars(j_constraints).items()
+        if callable(v) and not k.startswith("_") and k != "annotations")
+    for args in CONSTRAINT_ARGS[fn]:
+        got = getattr(constraints, fn)(*args)
+        assert got == getattr(j_constraints, fn)(*args) and got > 0
+
+
+def test_witness_check_scalar_helpers():
+    rng = random.Random(10)
+    assert (wc.BJJ_A, wc.BJJ_D, wc.MAX_NLEVELS) == \
+        (j_wc.BJJ_A, j_wc.BJJ_D, j_wc.MAX_NLEVELS)
+    for _ in range(40):
+        f = rng.randrange(1 << 40)
+        assert wc._decode_float(f) == j_wc._decode_float(f)
+        sel, amount = rng.randrange(256), rng.randrange(1 << rng.randrange(1, 192))
+        for apply_fee in (False, True):
+            assert wc._compute_fee(sel, amount, apply_fee) == \
+                j_wc._compute_fee(sel, amount, apply_fee)
+        st = (rng.randrange(1 << 32), rng.randrange(1 << 40), rng.randrange(2),
+              rng.randrange(1 << 192), rng.randrange(P), rng.randrange(1 << 160))
+        assert wc._hash_state(*st) == j_wc._hash_state(*st)
+        assert wc._be(st[3], 192) == j_wc._be(st[3], 192)
+    assert wc._hash_state(1, 2, 1, 10 ** 18, 12345, 7) == \
+        state_utils.hash_state(dict(tokenID=1, nonce=2, sign=1,
+                                    balance=10 ** 18, ay=12345, ethAddr=7))
+
+
+def test_witness_check_curve_helpers():
+    rng = random.Random(11)
+    for i in range(4):
+        prv = rng.randbytes(32)
+        pub = babyjub.prv2pub(prv)
+        msg = rng.randrange(P)
+        sig = babyjub.sign_poseidon(prv, msg)
+        sign = int(pub[0] > P // 2)
+        got = wc._ay_sign_to_ax(pub[1], sign)
+        assert got == j_wc._ay_sign_to_ax(pub[1], sign) == (pub[0], True)
+        args = (pub[0], pub[1], sig["S"], sig["R8"][0], sig["R8"][1])
+        for m, want in ((msg, True), ((msg + 1) % P, False)):
+            assert wc._eddsa_verify(*args, m) is want
+            assert j_wc._eddsa_verify(*args, m) is want
+    # no point of the curve has this ordinate
+    bad = next(y for y in range(2, 50) if not wc._ay_sign_to_ax(y, 0)[1])
+    assert wc._ay_sign_to_ax(bad, 0) == j_wc._ay_sign_to_ax(bad, 0)
+
+
+@pytest.mark.parametrize("kind", ["insert", "update", "delete", "nop"])
+def test_witness_check_smt_chains(kind):
+    rng = random.Random(12)
+    tree = smt.SMT()
+    keys = rng.sample(range(1, 1 << 10), 12)
+    for k in keys:
+        tree.insert(k, rng.randrange(P))
+    n = 12
+    for k in keys[:4]:
+        if kind == "insert":
+            pr = tree.insert(k + (1 << 10), rng.randrange(P))
+            fnc = (1, 0)
+        elif kind == "update":
+            pr = tree.update(k, rng.randrange(P))
+            fnc = (0, 1)
+        elif kind == "delete":
+            pr = tree.delete(k)
+            pr["new_key"], pr["new_value"] = pr["del_key"], pr["del_value"]
+            fnc = (1, 1)
+        else:
+            pr = dict(old_root=tree.root, new_root=tree.root, siblings=[7],
+                      old_key=1, old_value=2, is_old0=False, new_key=3,
+                      new_value=4)
+            fnc = (0, 0)
+        sib = pr["siblings"] + [0] * (n - len(pr["siblings"]))
+        args = (sib, pr["old_key"], pr["old_value"], pr["is_old0"],
+                pr["new_key"], pr["new_value"], *fnc)
+        got = wc.smt_chains_py(*args)
+        assert got == j_wc.smt_chains_py(*args)
+        res = wc._smt_processor(pr["old_root"], *args)
+        assert res == j_wc._smt_processor(pr["old_root"], *args)
+        assert res == (pr["new_root"], True)
+        if kind != "nop":
+            assert got[:2] == (pr["old_root"], pr["new_root"])
+            assert wc._smt_processor(pr["old_root"] + 1, *args)[1] is False
+
+
+def _withdraw_vector(lanes, n_levels):
+    """The Withdraw witness vector of valid lanes, made by host code alone
+    in the order of `engine/witness_vector.signal_names_withdraw`."""
+    w = {"one": 1}
+    for i, d in enumerate(lanes):
+        eth = int(str(d["ethAddr"]), 0)
+        w[f"main.hashGlobalInputs[{i}]"] = \
+            withdraw_utils.hash_inputs_withdraw(d)
+        for k in ("rootExit", "tokenID", "balance", "idx", "sign", "ay"):
+            w[f"main.{k}[{i}]"] = d[k]
+        w[f"main.ethAddr[{i}]"] = eth
+        sib = d["siblingsState"] + [0] * (n_levels + 1)
+        for k in range(n_levels + 1):
+            w[f"main.siblingsState[{i}][{k}]"] = sib[k]
+        w[f"main.stateHash[{i}]"] = state_utils.hash_state(
+            dict(d, nonce=0, ethAddr=eth))
+    return w
+
+
+@pytest.mark.parametrize("tamper", [None, "main.balance[1]", "main.ay[0]",
+                                    "main.rootExit[2]", "main.idx[0]",
+                                    "main.hashGlobalInputs[1]", "one"])
+def test_verify_withdraw_witness_copy(tamper):
+    n_levels = 10
+    lanes = withdraw_cases.exit_tree_batch(random.Random(13), 3, n_levels)
+    w = _withdraw_vector(lanes, n_levels)
+    for i, d in enumerate(lanes):
+        assert wc._smt_inclusion_root(
+            d["siblingsState"] + [0], d["idx"],
+            w[f"main.stateHash[{i}]"]) == d["rootExit"]
+    if tamper is not None:
+        w[tamper] += 1
+    res = wc.verify_withdraw_witness(w, n_levels, 3)
+    assert res == j_wc.verify_withdraw_witness(w, n_levels, 3)
+    assert res["ok"] == (tamper is None), res["failures"]
+    assert res["n_checked"] == 1 + 5 * 3

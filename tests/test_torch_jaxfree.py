@@ -3,10 +3,13 @@ can be imported (the card's machine has no JAX). A subprocess blocks every
 `jax*` and `circuits_tpu` import with a meta-path finder, imports
 `circuits_tpu_torch`, builds the suite's (3, 16, 2, 2) batches with the
 port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
-outputs against the builder, runs both plain versions of the full-round
-experiment against its bigint mirror, and checks that neither `jax` nor
-`circuits_tpu` ever entered `sys.modules`. A second case: the engine with
-no `device` asks for the card and raises where there is none."""
+outputs against the builder, reads its signals (`trace`), exports its
+witness vector and checks it with the port's pure-Python checker, runs a
+batch of withdrawals through `WithdrawEngine` against the builder, runs both
+plain versions of the full-round experiment against its bigint mirror, and
+checks that neither `jax` nor `circuits_tpu` ever entered `sys.modules`. A
+second case: the engines with no `device` ask for the card and raise where
+there is none."""
 
 import os
 import subprocess
@@ -37,8 +40,15 @@ BLOCK = textwrap.dedent("""
 
 SCRIPT = BLOCK + textwrap.dedent("""
     import circuits_tpu_torch  # noqa: F401
-    from circuits_tpu_torch.engine.witness import RollupEngine
+    import random
+
+    from circuits_tpu_torch.builder.withdraw_utils import hash_inputs_withdraw
+    from circuits_tpu_torch.engine import witness_vector
+    from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
     from circuits_tpu_torch.field import fr
+    from circuits_tpu_torch.r1cs.checker import check_batch
+    from circuits_tpu_torch.r1cs.witness_check import verify_witness
+    from circuits_tpu_torch.scripts import withdraw_cases
     from circuits_tpu_torch.ops import poseidon_rounds
     from circuits_tpu_torch.scripts import exp_mxu_inkernel
     from torch_compare import SUITE_CONFIG, oracle_outputs, suite_batches
@@ -49,6 +59,19 @@ SCRIPT = BLOCK + textwrap.dedent("""
         want = oracle_outputs(bb)
         assert ok, name
         assert {k: out[k] for k in want} == want, name
+    inp = bb.get_input()  # the L2 batch
+    tr = engine.trace(inp)
+    assert tr["lane_ok"] == [True] * 3 and tr["states.key1"][0] == 256
+    assert sorted(tr) == sorted(list(engine.SIGNALS) + ["lane_ok", "accFeeOut"])
+    names, values = witness_vector.export_witness(engine, inp)
+    assert values[1] == want["hash_global_inputs"]
+    assert verify_witness(dict(zip(names, values)), *SUITE_CONFIG)["ok"]
+    assert check_batch(engine.pack(inp), *SUITE_CONFIG)["ok"]
+    lanes = withdraw_cases.exit_tree_batch(random.Random(1), 5, 8)
+    lanes.append(withdraw_cases.tamper(lanes[0], "balance", 8))
+    hashes, ok = WithdrawEngine(8, device="cpu").run(lanes)
+    assert ok.tolist() == [True] * 5 + [False]
+    assert hashes == [hash_inputs_withdraw(d) for d in lanes]
     state, vals = exp_mxu_inkernel.random_state(6)
     vpu = poseidon_rounds.full_rounds_vpu_plain(state, 2)
     assert bool((vpu == poseidon_rounds.full_rounds_mxu_plain(state, 2)).all())
@@ -73,6 +96,8 @@ NO_CARD_SCRIPT = BLOCK + textwrap.dedent("""
                     (smt, "processor_chain_plain")):
         setattr(mod, fn, lambda *a, **k: ran.append(1))
     for call in (lambda: witness.RollupEngine(4, 8, 2, 2),
+                 lambda: witness.WithdrawEngine(8),
+                 lambda: witness.pack_withdraw_inputs([], 8),
                  lambda: witness.pack_rollup_inputs(
                      suite_batches()["deposit"].get_input(), *SUITE_CONFIG)):
         try:
