@@ -57,6 +57,21 @@ Phases (any failure raises, and the exit code is then non-zero):
     (pure Python) on a RollupMain(16, 32, 8, 4) batch and
     `export_witness_withdraw` -> `verify_withdraw_witness` on 8 lanes of
     phase 8, each of which must pass and must fail with one value changed.
+10. the modules with no kernel of their own, on the card: the BabyJubJub
+    point operations (`scalar_mul_base8` and `scalar_mul_var` of BASE8 on
+    1024 random scalars below the subgroup order, `points_equal` on every
+    lane, 16 lanes' affine points against the host `mul_point`), and the
+    8-bit-limb Poseidon `permute_mont_mxu` against `permute_mont` (K1) for
+    t = 3..7 at 4096 lanes, exactly, both timed;
+11. the CLI on the card, each verb its own `python -m
+    circuits_tpu_torch.tools.cli` process in a temporary directory:
+    `create`, `input` (32 accounts, 16 transfers, RollupMain(32, 16, 8,
+    64)), `witness`, `check` on it and on a copy with one balance changed,
+    `trace` of one signal and `witnessfull` (the verbs that read the input
+    two at a time), each exit code and the hash `input` printed held; then
+    `compile 2048 32 256 64` alone, whose kernel library and first call give
+    the time a fresh process takes to its first witness; the seconds of
+    each verb.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -101,8 +116,8 @@ from circuits_tpu_torch.field import fr, scalar  # noqa: E402
 from circuits_tpu_torch.models import hash_inputs  # noqa: E402
 from circuits_tpu_torch.models.rollup_tx import hash_state  # noqa: E402
 from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
-                                    poseidon_constants, poseidon_rounds,
-                                    sha256, smt)
+                                    poseidon_constants, poseidon_mxu,
+                                    poseidon_rounds, sha256, smt)
 from circuits_tpu_torch.r1cs.checker import check_batch  # noqa: E402
 from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
     verify_withdraw_witness, verify_witness)
@@ -883,6 +898,126 @@ def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def check_new_modules(dev, rng):
+    """Phase 10: the public point operations and the 8-bit-limb Poseidon
+    permutation on the card."""
+    n = 1024
+    ks = [rng.randrange(babyjub.SUB_ORDER) for _ in range(n)]
+    bits = fr.bits_le(fr.pack(ks, dev), babyjubjub.S_BITS)
+    b8 = babyjubjub.from_affine_mont(
+        fr.to_mont(fr.pack([babyjub.BASE8[0]] * n, dev)),
+        fr.to_mont(fr.pack([babyjub.BASE8[1]] * n, dev)))
+    babyjubjub.scalar_mul_base8(bits[:, :2])  # warm-up
+    base_ms = plain_ms(lambda: babyjubjub.scalar_mul_base8(bits))
+    base = babyjubjub.scalar_mul_base8(bits)
+    var_ms = plain_ms(lambda: babyjubjub.scalar_mul_var(bits, b8))
+    var = babyjubjub.scalar_mul_var(bits, b8)
+    eq = babyjubjub.points_equal(var, base)
+    n_bad = int((~eq).sum().item())
+    x, y, z = (fr.from_mont(c[:, :16]) for c in base)
+    zinv = fr.inv(z)
+    got = torch.stack([fr.mul(x, zinv), fr.mul(y, zinv)])
+    want = [babyjub.mul_point(k, babyjub.BASE8) for k in ks[:16]]
+    err = max_err(got.cpu(), torch.stack(
+        [fr.pack([w[0] for w in want]), fr.pack([w[1] for w in want])]))
+    print(f"  BabyJubJub x {n} lanes: scalar_mul_base8 {base_ms:.1f} ms, "
+          f"scalar_mul_var(B8) {var_ms:.1f} ms (plain PyTorch); "
+          f"points_equal false on {n_bad} lanes; 16 lanes' affine points "
+          f"against the host mul_point: max_abs_err={err}", flush=True)
+    assert n_bad == 0 and err == 0, "BabyJubJub point operations disagree"
+    lanes = 4096
+    for t in range(3, 8):
+        vals = [[rng.randrange(scalar.P) for _ in range(lanes)]
+                for _ in range(t)]
+        st = fr.to_mont(fr.pack(vals, dev)).contiguous()
+        want = poseidon.permute_mont(st)
+        got = poseidon_mxu.permute_mont_mxu(st)
+        err = max_err(got, want)
+        k1_ms = kernel_ms(lambda: poseidon.permute_mont(st), 5)
+        mxu_ms = plain_ms(lambda: poseidon_mxu.permute_mont_mxu(st))
+        print(f"  permute_mont_mxu t={t} x {lanes} lanes: max_abs_err={err} "
+              f"against K1; mxu {mxu_ms:.1f} ms (plain PyTorch, float64 "
+              f"products), K1 {k1_ms:.4f} ms", flush=True)
+        assert err == 0, f"permute_mont_mxu t={t} disagrees with K1"
+
+
+def check_cli(card):
+    """Phase 11: every CLI verb that runs the engine, each in its own
+    process on the card, in a temporary directory. The verbs that only read
+    `inputs-32.json` run two at a time, side by side; `compile`, the warm
+    start, runs alone."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    params = ["32", "16", "8", "64"]
+    secs, outs = {}, {}
+
+    def cli(*calls):
+        """Run (tag, exit code wanted, argv) calls side by side, their
+        output into files; keep each one's stdout and seconds."""
+        procs, t0 = {}, time.perf_counter()
+        try:
+            for tag, code, args in calls:
+                with open(os.path.join(tmp, f"{tag}.out"), "w") as out, \
+                        open(os.path.join(tmp, f"{tag}.err"), "w") as err:
+                    procs[tag] = (code, args, subprocess.Popen(
+                        [sys.executable, "-m", "circuits_tpu_torch.tools.cli",
+                         *args], cwd=tmp, env=env, stdout=out, stderr=err))
+            while len(secs.keys() & procs.keys()) < len(procs):
+                assert time.perf_counter() - t0 < 300, "a CLI verb hangs"
+                for tag, (_, _, proc) in procs.items():
+                    if tag not in secs and proc.poll() is not None:
+                        secs[tag] = time.perf_counter() - t0
+                time.sleep(0.02)
+        finally:
+            for _, _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        for tag, (code, args, proc) in procs.items():
+            with open(os.path.join(tmp, f"{tag}.out")) as f:
+                outs[tag] = f.read()
+            with open(os.path.join(tmp, f"{tag}.err")) as f:
+                err = f.read()
+            assert proc.returncode == code, (
+                f"cli {' '.join(args)}: exit {proc.returncode}, wanted "
+                f"{code}\n{outs[tag][-2000:]}{err[-4000:]}")
+
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        cli(("create", 0, ["create", *params]))
+        assert os.path.exists(os.path.join(tmp, "rollup-32-16-8-64",
+                                           "config.json"))
+        cli(("input", 0, ["input", "32", "16"]))
+        expected = outs["input"].strip().rsplit("= ", 1)[1].rstrip(")")
+        inp = os.path.join(tmp, "inputs-32.json")
+        with open(inp) as f:
+            bad = json.load(f)
+        bad["balance1"][0] = str(int(bad["balance1"][0]) + 7)
+        with open(os.path.join(tmp, "bad.json"), "w") as f:
+            json.dump(bad, f)
+        cli(("witness", 0, ["witness", inp, "out.json", *params]),
+            ("check", 0, ["check", inp, *params]))
+        cli(("check tampered", 1, ["check", "bad.json", *params]),
+            ("trace", 0, ["trace", inp, *params, "decode.tokenID"]))
+        cli(("witnessfull", 0, ["witnessfull", inp, "full.wtns", *params]))
+        with open(os.path.join(tmp, "out.json")) as f:
+            res = json.load(f)
+        cli(("compile", 0, ["compile", "2048", "32", "256", "64"]))
+    assert res["ok"] is True, res
+    assert res["outputs"]["hash_global_inputs"] == expected
+    assert outs["check"].strip() == "constraints SATISFIED", outs["check"]
+    assert outs["check tampered"].strip() == "constraints FAILED"
+    traced = json.loads(outs["trace"].strip().splitlines()[-1])
+    assert traced["decode.tokenID"] == ["1"] * 16 + ["0"] * 16, traced
+    assert "ALL SATISFIED" in outs["witnessfull"], outs["witnessfull"]
+    print(f"  CLI on {card}: input printed hashGlobalInputs = {expected}; "
+          "witness ok and the same hash, check 0 and 1 (tampered), trace "
+          "and witnessfull 0 (ALL SATISFIED)", flush=True)
+    print("  " + outs["compile"].strip().replace("\n", "\n  "), flush=True)
+    print("  seconds a verb, its own process (witness beside check, check "
+          "tampered beside trace): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+
+
 def production_batch(n_tx, n_levels, max_l1, max_fee):
     """The scripts/exp_production.py recipe: populate n_tx accounts with
     L1 deposits, then one batch of n_tx signed L2 transfers (a ring) with
@@ -1071,6 +1206,18 @@ def main() -> None:
     t0 = time.perf_counter()
     check_debug_paths(engine, inp, bad, out, wengine, wlanes)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10 - the modules with no kernel of their own
+    t0 = time.perf_counter()
+    print("modules without a kernel (exact):", flush=True)
+    check_new_modules(dev, rng)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11 - the CLI on the card
+    t0 = time.perf_counter()
+    print("CLI:", flush=True)
+    check_cli(card)
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for name, (source, replaces) in SOURCES.items():

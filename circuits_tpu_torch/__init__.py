@@ -8,12 +8,14 @@ Layers, mirroring `circuits_tpu/`:
   ops/      Poseidon, SMT processor, BabyJubJub/EdDSA, SHA-256, gadgets;
             each op with a hand-written CUDA kernel has its plain PyTorch
             version beside the wrapper; `poseidon_constants.py` generates
-            the constants
+            the constants; `poseidon_mxu.py` is the permutation on 8-bit
+            limbs with matrix products, a function beside `permute_mont`
   models/   the RollupMain circuit templates as batched evaluators
   engine/   input packing and the RollupEngine entry point
   builder/  the host-side batch builder (RollupDB, SMT, accounts, txs)
   utils/    host hashes (blake512, keccak, SHA-256) and the loader of the
             native host Poseidon
+  tools/    the CLI (`python -m circuits_tpu_torch.tools.cli <verb>`)
   csrc/     the CUDA C++ kernels (built on first use, see kernels.py)
 
 The entry points (`RollupEngine`, `pack_rollup_inputs`) run on the card

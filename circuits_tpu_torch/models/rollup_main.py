@@ -9,6 +9,7 @@ neighbour's outputs, so the nTx lane axis is a plain batch axis.
   rollup_main_lanes()  phases A-E: per-lane decode + tx + integrity
   global_tail()        phases F-H: fee txs, fee-chain integrity, SHA-256
   rollup_main()        all of it, and the verdict
+  make_rollup_main()   rollup_main closed over the four static parameters
 
 Input dict layout as in the JAX package (T = nTx, F = maxFeeTx,
 L = nLevels): scalars (16, 1); per-tx fields (16, T); per-tx flags (T,);
@@ -17,6 +18,8 @@ bits (256, T); siblings (L+1, 16, T); im chains (16, T-1), (T-1,) and
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -251,3 +254,10 @@ def rollup_main(inp: dict, n_tx: int, n_levels: int, max_l1_tx: int,
     out, tail_ok = global_tail(inp, lanes, n_tx, n_levels, max_l1_tx,
                                max_fee_tx)
     return out, ok_all & tail_ok
+
+
+def make_rollup_main(n_tx, n_levels, max_l1_tx, max_fee_tx):
+    """`rollup_main` closed over the static circuit parameters: a function
+    of the packed input dict alone."""
+    return partial(rollup_main, n_tx=n_tx, n_levels=n_levels,
+                   max_l1_tx=max_l1_tx, max_fee_tx=max_fee_tx)

@@ -9,6 +9,11 @@ comb over the host table, windowed variable-base Horner. The kernel walks
 the curve in its a = 1 form (x scaled by sqrt(a)), where every Y and Z is
 the plain version's and every X is sqrt(a) times it; the verdict is the same.
 
+The module's public point operations (`identity`, `from_affine_mont`,
+`pselect`, `points_equal`, `scalar_mul_var`, `scalar_mul_base8`) are plain
+PyTorch with the JAX package's order of additions, so their projective
+limbs equal the JAX functions'. They are not a second EdDSA route.
+
 S is read as 253 bits, as circomlib's Num2Bits(253) does and as the JAX
 package's XLA path does (its Pallas kernel reads 256; see ROADMAP F2).
 """
@@ -89,15 +94,109 @@ def pdouble(p):
     return (x3, y3, z3)
 
 
-def _digits(x: torch.Tensor, nbits: int) -> torch.Tensor:
-    """Canonical (16, B) -> (64, B) radix-16 digits of its low `nbits`
-    bits, least significant first."""
-    bits = fr.bits_le(x, nbits)
-    if nbits < 256:
-        bits = torch.cat([bits, bits.new_zeros((256 - nbits,) + bits.shape[1:])])
-    w = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=x.device)
-    return (bits.reshape((64, 4) + bits.shape[1:])
-            * w.reshape((1, 4) + (1,) * (bits.dim() - 1))).sum(dim=1)
+def identity(bshape, device=None):
+    """Projective identity (0 : 1 : 1), Montgomery form."""
+    zero = fr.zeros(bshape, device)
+    one = fr.mont_const(1, zero).expand(zero.shape)
+    return (zero, one, one)
+
+
+def from_affine_mont(x_m, y_m):
+    return (x_m, y_m, fr.mont_const(1, x_m).expand(x_m.shape))
+
+
+def pselect(cond, p1, p2):
+    return tuple(fr.select(cond, u, v) for u, v in zip(p1, p2))
+
+
+def points_equal(p1, p2):
+    """Projective equality X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1; (batch,)
+    bool."""
+    x1, y1, z1 = p1
+    x2, y2, z2 = p2
+    a, b, c, d = _mm_batch([(x1, z2), (x2, z1), (y1, z2), (y2, z1)])
+    return fr.eq(a, b) & fr.eq(c, d)
+
+
+def _pad_identity(x, y, z, m):
+    """Pad the point axis (dim 1) to m with projective identities."""
+    n = x.shape[1]
+    if m == n:
+        return (x, y, z)
+    shape = x.shape[:1] + (m - n,) + x.shape[2:]
+    one = fr.mont_const(1, x).expand(shape)
+    return (torch.cat([x, x.new_zeros(shape)], dim=1),
+            torch.cat([y, one], dim=1), torch.cat([z, one], dim=1))
+
+
+def _sum_points(pts, segments=8):
+    """Sum N projective points (coords (16, N, *batch)) in the JAX
+    package's order: S = min(segments, N) chains, chain i adding points
+    i k .. i k + k - 1 (k = ceil(N / S), identities pad the tail), one
+    padd a step for the S chains at once; then the S partial sums folded
+    left to right from the identity."""
+    n = pts[0].shape[1]
+    bshape = pts[0].shape[2:]
+    s = min(segments, n)
+    k = -(-n // s)
+    seg = tuple(c.reshape((N_LIMBS, s, k) + bshape)
+                for c in _pad_identity(*pts, s * k))
+    acc = identity((s,) + bshape, pts[0].device)
+    for j in range(k):
+        acc = padd(acc, tuple(c[:, :, j] for c in seg))
+    total = identity(bshape, pts[0].device)
+    for i in range(s):
+        total = padd(total, tuple(c[:, i] for c in acc))
+    return total
+
+
+def _var_points(bits, point):
+    """Masked point stack for a variable-base multiply: coords
+    (16, nbits, *batch), entry i = bit_i ? 2^i * point : identity
+    ((0 : Z : Z) is the identity)."""
+    rows = [point]
+    for _ in range(bits.shape[0] - 1):
+        rows.append(pdouble(rows[-1]))
+    dx, dy, dz = (torch.stack([r[k] for r in rows], dim=1) for k in range(3))
+    bb = bits.bool().unsqueeze(0)
+    return (torch.where(bb, dx, 0), torch.where(bb, dy, dz), dz)
+
+
+def scalar_mul_var(bits, point):
+    """Variable-base scalar multiply: bits (nbits, *batch) 0/1 LSB-first,
+    point projective Montgomery; sum over the set bits of 2^i * point."""
+    return _sum_points(_var_points(bits, point))
+
+
+def _base8_points(bits):
+    """Comb-selected point stack for the fixed-base multiply by BASE8:
+    coords (16, 64, *batch), entry j = digit_j * 16^j * BASE8 from the comb
+    table (`_comb`, the JAX package's `_base8_window_table`)."""
+    bshape = bits.shape[1:]
+    digits = _digits(bits)  # (64, *batch)
+    tab = _comb(bits.device, False).reshape(64 * 16, 2, N_LIMBS)
+    offs = (torch.arange(64, device=bits.device) * 16).reshape(
+        (64,) + (1,) * len(bshape))
+    sel = tab[digits + offs]  # (64, *batch, 2, 16)
+    px = sel[..., 0, :].movedim(-1, 0)
+    py = sel[..., 1, :].movedim(-1, 0)
+    return (px, py, fr.mont_const(1, px).expand(px.shape))
+
+
+def scalar_mul_base8(bits):
+    """Fixed-base multiply by BASE8: comb table, then the segmented sum."""
+    return _sum_points(_base8_points(bits))
+
+
+def _digits(bits: torch.Tensor) -> torch.Tensor:
+    """bits (nbits, *batch) 0/1 LSB-first -> (64, *batch) int64 radix-16
+    digits, least significant first."""
+    bshape = bits.shape[1:]
+    if bits.shape[0] < 256:
+        bits = torch.cat([bits, bits.new_zeros((256 - bits.shape[0],) + bshape)])
+    w = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=bits.device)
+    return (bits.to(torch.int64).reshape((64, 4) + bshape)
+            * w.reshape((1, 4) + (1,) * len(bshape))).sum(dim=1)
 
 
 def _gather_points(table, digit):
@@ -119,8 +218,8 @@ def eddsa_ok_mont_plain(ax_m, ay_m, s, r8x_m, r8y_m, hm):
     for _ in range(2, 16):
         tab.append(padd_affine(tab[-1], (ax_m, ay_m)))
     tab = tuple(torch.stack([p[k] for p in tab], dim=1) for k in range(3))
-    d_hm = _digits(hm, 254)
-    d_s = _digits(s, S_BITS)
+    d_hm = _digits(fr.bits_le(hm, 254))
+    d_s = _digits(fr.bits_le(s, S_BITS))
     comb = _comb(dev, False)  # (64, 16, 2, 16)
     var, fix = ident, ident
     for jj in range(63, -1, -1):

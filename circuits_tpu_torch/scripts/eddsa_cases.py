@@ -14,7 +14,11 @@ def edge_lanes(rng):
     """K3's edge lanes as (name, (ax, ay, s, r8x, r8y, hm), verdict), all
     integers. hm is given, not hashed, so that it can be 0 or have every
     digit below the top one at its maximum; the verdict is the host curve
-    code's, None where it has none (A off the curve)."""
+    code's, None where it has none (A off the curve). "S + order" is a valid
+    signature with the subgroup order added to S (still below 2^253): the
+    group equation holds, so the JAX package's XLA path accepts it, and so
+    does the port, which follows that path; circomlib's verifier would
+    refuse S >= order, a check neither package makes (ROADMAP F2)."""
     order = babyjub.SUB_ORDER
     k, r = rng.randrange(1, order), rng.randrange(1, order)
     a_pt = babyjub.mul_point(k, babyjub.BASE8)
@@ -39,6 +43,7 @@ def edge_lanes(rng):
         ("every hm digit 15", a_pt, (r + top * k) % order, r_pt, top, True),
         ("every hm digit 15, wrong S", a_pt, (r + top * k + 1) % order, r_pt,
          top, False),
+        ("S + order", a_pt, (r + hm * k) % order + order, r_pt, hm, True),
     ]
     return [(name, (a[0], a[1], s, r8[0], r8[1], h), verdict)
             for name, a, s, r8, h, verdict in lanes]

@@ -69,6 +69,9 @@ def library():
     lib.set_poseidon_params.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_char_p, ctypes.c_char_p]
     lib.set_poseidon_params.restype = None
+    lib.poseidon_hash_batch.argtypes = [ctypes.c_int, ctypes.c_long,
+                                        ctypes.c_char_p, ctypes.c_char_p]
+    lib.poseidon_hash_batch.restype = None
     _lib = lib
     return _lib
 
@@ -99,3 +102,16 @@ def poseidon_native(lib, inputs: list[int]) -> int:
     obuf = ctypes.create_string_buffer(32)
     lib.poseidon_hash(t, ibuf, obuf)
     return int.from_bytes(obuf.raw, "little")
+
+
+def poseidon_native_batch(lib, n_inputs: int, rows: list[list[int]]
+                          ) -> list[int]:
+    """Poseidon of each row of `n_inputs` canonical ints, one native call
+    for the whole list, on the library `library()` returned."""
+    t = n_inputs + 1
+    _install_constants(lib, t)
+    ibuf = b"".join(_le_bytes(x) for row in rows for x in row)
+    obuf = ctypes.create_string_buffer(32 * len(rows))
+    lib.poseidon_hash_batch(t, len(rows), ibuf, obuf)
+    return [int.from_bytes(obuf.raw[32 * i:32 * i + 32], "little")
+            for i in range(len(rows))]

@@ -29,7 +29,7 @@ from torch_compare import assert_same, to_torch
 N_KEYS = 3
 # lane kinds: the verdict the XLA path and the host verifier give
 KINDS = ["valid", "bad_msg", "bad_s", "s_plus_2^253", "s_plus_2^252",
-         "disabled_garbage"]
+         "disabled_garbage", "s_plus_order"]
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +54,8 @@ def lanes():
                 row["s"] = s + (1 << 253)
             elif kind == "s_plus_2^252":
                 row["s"] = s + (1 << 252)
+            elif kind == "s_plus_order":
+                row["s"] = s + babyjub.SUB_ORDER
             elif kind == "disabled_garbage":
                 row.update(enabled=0, s=123, r8x=5, msg=6)
             for k, v in row.items():
@@ -82,10 +84,33 @@ def test_verify_matches_jax(verdicts):
 @pytest.mark.parametrize("kind", KINDS)
 def test_verdict_per_kind(lanes, verdicts, kind):
     kinds, _ = lanes
-    got, _ = verdicts
+    got, want = verdicts
     expect = kind in ("valid", "s_plus_2^253", "disabled_garbage")
+    if kind == "s_plus_order":
+        # pinned to the JAX package's XLA path, whatever it says
+        expect = bool(np.asarray(want)[kinds.index(kind)])
     assert [bool(got[i]) for i, k in enumerate(kinds) if k == kind] == \
         [expect] * N_KEYS
+
+
+def test_s_plus_sub_order_follows_the_xla_path(lanes, verdicts):
+    """s + SUB_ORDER stays below 2^253 for every s below the order, so the
+    XLA path reads all of it: the verdict is the XLA path's (it accepts:
+    S * B8 is the same point), while the host verifier, like circomlib's,
+    refuses S >= order. Neither package makes that check (ROADMAP F2)."""
+    kinds, args = lanes
+    got, want = verdicts
+    idx = [i for i, k in enumerate(kinds) if k == "s_plus_order"]
+    s = [int(v) for v in jfr.unpack_np(args["s"])]
+    for i in idx:
+        assert babyjub.SUB_ORDER <= s[i] < 1 << 253
+        assert bool(got[i]) == bool(np.asarray(want)[i]) is True
+        sig = dict(R8=(int(jfr.unpack_np(args["r8x"])[i]),
+                       int(jfr.unpack_np(args["r8y"])[i])), S=s[i])
+        pub = (int(jfr.unpack_np(args["ax"])[i]),
+               int(jfr.unpack_np(args["ay"])[i]))
+        assert not babyjub.verify_poseidon(
+            int(jfr.unpack_np(args["msg"])[i]), sig, pub)
 
 
 def test_valid_lanes_agree_with_host_verifier(lanes, verdicts):
@@ -178,13 +203,14 @@ def edge_verdicts():
     return edge, got.tolist(), want.tolist()
 
 
-@pytest.mark.parametrize("lane", range(12))
+@pytest.mark.parametrize("lane", range(13))
 def test_edge_lane_matches_jax_and_host(edge_verdicts, lane):
     """A off the curve, A or R8 the identity, hm = 0, S = 0 and every hm
-    digit below the top one 15, each with a wrong twin: the port's verdict is
-    the JAX package's, and the host curve code's where it has one."""
+    digit below the top one 15, each with a wrong twin, and S + order: the
+    port's verdict is the JAX package's, and the host curve code's where it
+    has one."""
     edge, got, want = edge_verdicts
-    assert len(edge) == 12
+    assert len(edge) == 13
     name, _, host = edge[lane]
     assert got[lane] == want[lane], name
     assert host is None or got[lane] == host, name
@@ -548,10 +574,10 @@ def test_kernel_schedule_mirror_whole_lane(kind):
     assert steps == K3_STEPS
 
 
-@pytest.mark.parametrize("lane", [1, 2, 4, 6, 8, 10])
+@pytest.mark.parametrize("lane", [1, 2, 4, 6, 8, 10, 12])
 def test_kernel_schedule_mirror_edge_lanes(lane):
     """The mirror on edge lanes: A off the curve (the JAX package's verdict),
-    A and R8 the identity, hm = 0, S = 0, every hm digit 15."""
+    A and R8 the identity, hm = 0, S = 0, every hm digit 15, S + order."""
     name, row, host = eddsa_cases.edge_lanes(random.Random(41))[lane]
     ok, _ = _k3_verdict(*row)
     if host is None:

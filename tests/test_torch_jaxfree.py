@@ -7,10 +7,13 @@ outputs against the builder, reads its signals (`trace`), exports its
 witness vector and checks it with the port's pure-Python checker, runs a
 batch of withdrawals through `WithdrawEngine` against the builder, runs both
 plain versions of the full-round experiment against its bigint mirror, and
-checks that neither `jax` nor `circuits_tpu` ever entered `sys.modules`. A
-second case: the engines with no `device` ask for the card and raise where
-there is none."""
+runs the 8-bit-limb Poseidon against K1's plain version, imports the CLI,
+and checks that neither `jax` nor `circuits_tpu` ever entered
+`sys.modules`. A second case: the engines with no `device` ask for the card
+and raise where there is none. A third: the CLI's `input`, then `witness
+--device cpu`, each in its own blocked subprocess."""
 
+import json
 import os
 import subprocess
 import sys
@@ -49,8 +52,9 @@ SCRIPT = BLOCK + textwrap.dedent("""
     from circuits_tpu_torch.r1cs.checker import check_batch
     from circuits_tpu_torch.r1cs.witness_check import verify_witness
     from circuits_tpu_torch.scripts import withdraw_cases
-    from circuits_tpu_torch.ops import poseidon_rounds
+    from circuits_tpu_torch.ops import poseidon, poseidon_mxu, poseidon_rounds
     from circuits_tpu_torch.scripts import exp_mxu_inkernel
+    from circuits_tpu_torch.tools import cli  # noqa: F401
     from torch_compare import SUITE_CONFIG, oracle_outputs, suite_batches
 
     engine = RollupEngine(*SUITE_CONFIG, device="cpu")
@@ -79,6 +83,9 @@ SCRIPT = BLOCK + textwrap.dedent("""
     for lane in range(6):
         assert [int(got[e, lane]) for e in range(3)] == \\
             poseidon_rounds.full_rounds_py([v[lane] for v in vals], 2), lane
+    st = fr.to_mont(fr.pack([[0, 0], [1, fr.P - 1], [2, 0]]))
+    assert bool((poseidon_mxu.permute_mont_mxu(st)
+                 == poseidon.permute_mont_plain(st)).all())
     assert not any(blocked(m) for m in sys.modules), \\
         [m for m in sys.modules if blocked(m)]
     print("STANDS ALONE OK")
@@ -111,11 +118,21 @@ NO_CARD_SCRIPT = BLOCK + textwrap.dedent("""
 """)
 
 
-def _run(script):
+CLI_SCRIPT = BLOCK + textwrap.dedent("""
+    from circuits_tpu_torch.tools import cli
+
+    cli.main(sys.argv[3:])
+    assert not any(blocked(m) for m in sys.modules), \\
+        [m for m in sys.modules if blocked(m)]
+""")
+
+
+def _run(script, *args, cwd=ROOT):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "-c", script, ROOT,
-                           os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
+                           os.path.join(ROOT, "tests"), *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
 
 
 def test_port_runs_without_jax():
@@ -130,3 +147,16 @@ def test_default_device_is_the_card_and_raises_without_one():
     res = _run(NO_CARD_SCRIPT)
     assert res.returncode == 0, res.stderr[-4000:]
     assert "NO CARD OK" in res.stdout
+
+
+def test_cli_runs_without_jax(tmp_path):
+    params = ["4", "16", "4", "2"]
+    res = _run(CLI_SCRIPT, "input", "4", "2", *params, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-4000:]
+    expected = res.stdout.strip().rsplit("= ", 1)[1].rstrip(")")
+    res = _run(CLI_SCRIPT, "witness", "inputs-4.json", "out.json", *params,
+               "--device", "cpu", cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads((tmp_path / "out.json").read_text())
+    assert out["ok"] is True
+    assert out["outputs"]["hash_global_inputs"] == expected
