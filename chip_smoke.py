@@ -67,8 +67,8 @@ Phases (any failure raises, and the exit code is then non-zero):
     circuits_tpu_torch.tools.cli` process in a temporary directory:
     `create`, `input` (32 accounts, 16 transfers, RollupMain(32, 16, 8,
     64)), `witness`, `check` on it and on a copy with one balance changed,
-    `trace` of one signal and `witnessfull` (the verbs that read the input
-    two at a time), each exit code and the hash `input` printed held; then
+    `trace` of one signal and `witnessfull` (the five that read the input
+    side by side), each exit code and the hash `input` printed held; then
     `compile 2048 32 256 64` alone, whose kernel library and first call give
     the time a fresh process takes to its first witness; the seconds of
     each verb.
@@ -943,9 +943,9 @@ def check_new_modules(dev, rng):
 
 def check_cli(card):
     """Phase 11: every CLI verb that runs the engine, each in its own
-    process on the card, in a temporary directory. The verbs that only read
-    `inputs-32.json` run two at a time, side by side; `compile`, the warm
-    start, runs alone."""
+    process on the card, in a temporary directory. The five verbs that only
+    read `inputs-32.json` run side by side; `compile`, the warm start, runs
+    alone."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     params = ["32", "16", "8", "64"]
@@ -995,10 +995,10 @@ def check_cli(card):
         with open(os.path.join(tmp, "bad.json"), "w") as f:
             json.dump(bad, f)
         cli(("witness", 0, ["witness", inp, "out.json", *params]),
-            ("check", 0, ["check", inp, *params]))
-        cli(("check tampered", 1, ["check", "bad.json", *params]),
-            ("trace", 0, ["trace", inp, *params, "decode.tokenID"]))
-        cli(("witnessfull", 0, ["witnessfull", inp, "full.wtns", *params]))
+            ("check", 0, ["check", inp, *params]),
+            ("check tampered", 1, ["check", "bad.json", *params]),
+            ("trace", 0, ["trace", inp, *params, "decode.tokenID"]),
+            ("witnessfull", 0, ["witnessfull", inp, "full.wtns", *params]))
         with open(os.path.join(tmp, "out.json")) as f:
             res = json.load(f)
         cli(("compile", 0, ["compile", "2048", "32", "256", "64"]))
@@ -1013,8 +1013,8 @@ def check_cli(card):
           "witness ok and the same hash, check 0 and 1 (tampered), trace "
           "and witnessfull 0 (ALL SATISFIED)", flush=True)
     print("  " + outs["compile"].strip().replace("\n", "\n  "), flush=True)
-    print("  seconds a verb, its own process (witness beside check, check "
-          "tampered beside trace): " + ", ".join(
+    print("  seconds a verb, its own process (witness, check, check "
+          "tampered, trace and witnessfull side by side): " + ", ".join(
               f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
 
 
