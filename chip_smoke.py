@@ -71,7 +71,16 @@ Phases (any failure raises, and the exit code is then non-zero):
     side by side), each exit code and the hash `input` printed held; then
     `compile 2048 32 256 64` alone, whose kernel library and first call give
     the time a fresh process takes to its first witness; the seconds of
-    each verb.
+    each verb;
+12. the tx-lane sharded path (`circuits_tpu_torch/parallel`) on phase 4's
+    batch: a world of one over NCCL in this process, its outputs limb-equal
+    to `run_packed`, the hash to the builder's, every kernel of the main
+    path launched, timed (median of 3); then a world of two, two
+    `circuits_tpu_torch.scripts.multihost_worker` processes on this one
+    card over gloo, fed one batch file that each runs twice: every hash
+    the builder's, each rank's launches of K1-K4 and seconds printed, and
+    `check_batch_sharded` on a copy with lanes 5 and 1024 (rank 1's first)
+    tampered names exactly those.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -80,7 +89,9 @@ rate, K6's mix over the published 1,979 TOP/s int8, K4's serial chain of
 rounds (3 dependent operations a round) over the card's clock. No PyTorch call computes any of the six
 functions, so `library_ms` is null in every row.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} (each row also with the
+kernel's launches in one Withdraw batch and in phase 12's world of one);
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -91,6 +102,7 @@ import hashlib
 import json
 import os
 import random
+import socket
 import statistics
 import subprocess
 import sys
@@ -99,6 +111,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -118,11 +131,14 @@ from circuits_tpu_torch.models.rollup_tx import hash_state  # noqa: E402
 from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
                                     poseidon_constants, poseidon_mxu,
                                     poseidon_rounds, sha256, smt)
+from circuits_tpu_torch.parallel import (  # noqa: E402
+    make_sharded_rollup_main, make_tx_mesh)
 from circuits_tpu_torch.r1cs.checker import check_batch  # noqa: E402
 from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
     verify_withdraw_witness, verify_witness)
 from circuits_tpu_torch.scripts import (eddsa_cases,  # noqa: E402
-                                        exp_mxu_inkernel, withdraw_cases)
+                                        exp_mxu_inkernel, multihost_worker,
+                                        withdraw_cases)
 
 LANES = 1000
 RAGGED = (1, 33)  # lane counts below a warp's and a block's lanes
@@ -1018,6 +1034,120 @@ def check_cli(card):
               f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_sharded(engine, packed, bb, bad, card):
+    """Phase 12: the tx-lane sharded path on phase 4's batch. (a) A world
+    of one over NCCL in this process: outputs limb-equal to `run_packed`,
+    the hash to the builder's, every kernel of the main path launched,
+    timed as a median of 3. (b) A world of two: two `multihost_worker`
+    processes on this one card over gloo (NCCL refuses two ranks on one
+    card), fed one batch file, which they run twice (a first call, then
+    one more): every hash the builder's, each rank's launches and seconds
+    printed; `check_batch_sharded` on a copy with lanes 5 and 1024
+    (the first lane of rank 1) tampered names exactly those two lanes.
+    Returns the kernels' launches of (a)'s run."""
+    n_tx = engine.params[0]
+    dev = engine.device
+    mesh = make_tx_mesh(1, device=dev)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        run = make_sharded_rollup_main(mesh, *engine.params)
+        want, _ = engine.run_packed(packed)
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, ok = run(packed)
+        sync()
+        t_first = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        assert bool(ok), "the sharded path refused a valid batch"
+        for k in want:
+            assert torch.equal(out[k], want[k]), f"{k}: sharded != run_packed"
+        assert fr.unpack_int(out["hash_global_inputs"]) == \
+            bb.get_hash_inputs()
+        for name in kernels.MAIN_PATH:
+            assert launches[name] > 0, \
+                f"kernel {name} was not launched by the sharded path"
+
+        def timed():
+            o, k = run(packed)
+            assert bool(k) and fr.unpack_int(o["hash_global_inputs"].cpu()) \
+                == bb.get_hash_inputs()
+
+        reps = [plain_ms(timed) * 1e-3 for _ in range(3)]
+    finally:
+        dist.destroy_process_group()
+    print(f"world of one (NCCL, in process) on {card}: outputs == "
+          f"run_packed, hash == builder, launches {launches}; first call "
+          f"{t_first:.3f} s, median {statistics.median(reps):.4f} s over 3 "
+          f"runs {['%.4f' % r for r in reps]}", flush=True)
+
+    bad = dict(bad)
+    bad["s"] = list(bad["s"])
+    bad["s"][n_tx // 2] = (bad["s"][n_tx // 2] + 1) % scalar.P
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "batches.pt")
+        multihost_worker.write_batches(path, engine.params,
+                                       [packed, packed], [engine.pack(bad)])
+        port, procs, t0 = free_port(), [], time.perf_counter()
+        try:
+            for rank in range(2):
+                with open(os.path.join(tmp, f"{rank}.out"), "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m",
+                         "circuits_tpu_torch.scripts.multihost_worker",
+                         str(rank), "2", str(port), path, "--backend",
+                         "gloo"], cwd=root, env=env, stdout=f,
+                        stderr=subprocess.STDOUT))
+            while any(p.poll() is None for p in procs):
+                assert time.perf_counter() - t0 < 300, "a rank hangs"
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        t_world2 = time.perf_counter() - t0
+        outs = []
+        for rank in range(2):
+            with open(os.path.join(tmp, f"{rank}.out")) as f:
+                outs.append(f.read())
+    ranks = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {rank} failed:\n{out[-4000:]}"
+        line = [ln for ln in out.splitlines()
+                if ln.startswith("MULTIHOST_RESULT ")][0]
+        ranks.append(json.loads(line.split(" ", 1)[1]))
+    for rank, res in enumerate(ranks):
+        (run, again), check = res["runs"], res["checks"][0]
+        assert res["rank"] == rank and res["device"] == "cuda:0", res["device"]
+        for r in (run, again):
+            assert r["ok"] and r["hash"] == bb.get_hash_inputs(), rank
+        assert not check["ok"]
+        assert np.flatnonzero(~np.array(check["lane_ok"])).tolist() \
+            == [5, n_tx // 2], f"rank {rank} names the wrong lanes"
+        assert all(check["fee_ok"])
+        assert all(run["launches"][k] > 0 for k in kernels.MAIN_PATH), \
+            f"rank {rank} launched {run['launches']}"
+        print(f"  rank {rank} of 2 (gloo, cuda:0, lanes "
+              f"{rank * n_tx // 2}-{(rank + 1) * n_tx // 2 - 1}): hash == "
+              f"builder, its first batch {run['seconds']:.3f} s, the second "
+              f"{again['seconds']:.3f} s, launches {again['launches']}; "
+              f"check_batch_sharded on the tampered copy names lanes 5 and "
+              f"{n_tx // 2} alone ({check['seconds']:.3f} s)", flush=True)
+    print(f"world of two (two processes on one card over gloo): "
+          f"{t_world2:.1f} s for both processes, start-up included",
+          flush=True)
+    return launches
+
+
 def production_batch(n_tx, n_levels, max_l1, max_fee):
     """The scripts/exp_production.py recipe: populate n_tx accounts with
     L1 deposits, then one batch of n_tx signed L2 transfers (a ring) with
@@ -1219,12 +1349,19 @@ def main() -> None:
     check_cli(card)
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 12 - the tx-lane sharded path
+    t0 = time.perf_counter()
+    print("sharded path:", flush=True)
+    slaunches = check_sharded(engine, packed, bb, bad, card)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     rows = []
     for name, (source, replaces) in SOURCES.items():
         r = results[name]
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
                          withdraw_launches=wlaunches[name],
+                         sharded_launches=slaunches[name],
                          max_abs_err=r["err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))

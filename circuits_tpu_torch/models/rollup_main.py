@@ -30,6 +30,11 @@ from .hash_inputs import hash_inputs
 from .rollup_tx import rollup_tx
 
 
+# the per-tx arrays whose +-3/+-4 lane windows the rq-link check reads
+# (src/rollup-main.circom:287-309), in the order of `neighbors`
+NEIGHBOR_KEYS = ("tx_compressed_data_v2", "to_eth_addr", "to_bjj_ay")
+
+
 def _neighbors(x, zero):
     """x (16, T) -> future (3, 16, T) and past (4, 16, T) neighbour stacks:
     future[j][i] = x[i+j+1], past[j][i] = x[i-j-1], zero-padded."""
@@ -119,9 +124,16 @@ def build_tx_inputs(inp: dict, chains: dict, dec: dict, n_tx: int,
 
 
 def rollup_main_lanes(inp: dict, chains: dict, n_tx: int, n_levels: int,
-                      max_fee_tx: int, debug: bool = False):
+                      max_fee_tx: int, neighbors=None, last_mask=None,
+                      debug: bool = False):
     """Phases A-E for all tx lanes. Returns (lane outputs dict, per-lane
-    ok (T,))."""
+    ok (T,)).
+
+    `n_tx` is the width of the lane axis IN THIS CALL -- the sharded path
+    (parallel/sharding.py) passes a rank's width plus `neighbors` (the six
+    rq-link window stacks of `_neighbors`, cut to its lanes from the full
+    width) and `last_mask` ((T,) bool, True at the globally last lane);
+    single-device callers pass neither."""
     dev = inp["old_state_root"].device
     # A - binary checks: non-binary flags flip the verdict
     lane_ok = (inp["from_bjj_compressed"] <= 1).all(dim=0)
@@ -143,7 +155,8 @@ def rollup_main_lanes(inp: dict, chains: dict, n_tx: int, n_levels: int,
     lane_ok = lane_ok & dec_ok
 
     # C - decode integrity
-    last = torch.arange(n_tx, device=dev) == n_tx - 1
+    last = (torch.arange(n_tx, device=dev) == n_tx - 1) \
+        if last_mask is None else last_mask
     lane_ok = lane_ok & fr.eq(dec["tx_compressed_data_v2"],
                               inp["tx_compressed_data_v2"])
     lane_ok = lane_ok & ((inp["on_chain"].bool() == chains["im_oc_next"])
@@ -152,13 +165,11 @@ def rollup_main_lanes(inp: dict, chains: dict, n_tx: int, n_levels: int,
                          | last)
 
     # D - rollup transactions
-    zero1 = fr.zeros((1,), dev)
-    fut_v2, past_v2 = _neighbors(inp["tx_compressed_data_v2"], zero1)
-    fut_eth, past_eth = _neighbors(inp["to_eth_addr"], zero1)
-    fut_ay, past_ay = _neighbors(inp["to_bjj_ay"], zero1)
-    tx_in = build_tx_inputs(inp, chains, dec, n_tx, max_fee_tx,
-                            (fut_v2, past_v2, fut_eth, past_eth,
-                             fut_ay, past_ay))
+    if neighbors is None:
+        zero1 = fr.zeros((1,), dev)
+        neighbors = tuple(w for k in NEIGHBOR_KEYS
+                          for w in _neighbors(inp[k], zero1))
+    tx_in = build_tx_inputs(inp, chains, dec, n_tx, max_fee_tx, neighbors)
     txo, tx_ok = rollup_tx(tx_in, n_levels, debug=debug)
     lane_ok = lane_ok & tx_ok
 

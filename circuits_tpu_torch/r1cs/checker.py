@@ -1,12 +1,13 @@
 """Constraint-satisfaction checking.
 
-Port of `circuits_tpu/r1cs/checker.py:check_batch`. The reference
-delegates "is this witness valid" to the R1CS and snarkjs (`Az o Bz = Cz`);
-this engine enforces the same relations as residuals evaluated during
-witness computation: every circom `===` / ForceEqualIfEnabled / Num2Bits
-range constraint appears as a boolean mask. `check_batch` exposes the
-per-lane and per-fee-slot masks for debugging, mirroring the reference's
-negative tests that expect "Constraint doesn't match"
+Port of `circuits_tpu/r1cs/checker.py`: `check_batch` on one device and
+`check_batch_sharded` with the tx lanes cut over a mesh of ranks. The
+reference delegates "is this witness valid" to the R1CS and snarkjs
+(`Az o Bz = Cz`); this engine enforces the same relations as residuals
+evaluated during witness computation: every circom `===` /
+ForceEqualIfEnabled / Num2Bits range constraint appears as a boolean mask.
+Both expose the per-lane and per-fee-slot masks for debugging, mirroring
+the reference's negative tests that expect "Constraint doesn't match"
 (test/rollup-main.test.js:679-684, 866-877).
 """
 
@@ -17,16 +18,12 @@ import torch
 from ..field import fr
 from ..models.fee_tx import fee_tx
 from ..models.rollup_main import build_chains, rollup_main_lanes
+from ..parallel import sharding
 
 
-def check_batch(packed: dict, n_tx: int, n_levels: int, max_l1_tx: int,
-                max_fee_tx: int) -> dict:
-    """packed: `pack_rollup_inputs`' tensors (their device decides where
-    this runs). Returns dict(ok, lane_ok (nTx,), fee_ok (maxFeeTx,)) as
-    host numpy -- which lane / fee slot violated a constraint."""
-    chains = build_chains(packed, n_tx, max_fee_tx)
-    _, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
-                                   max_fee_tx)
+def _fee_ok(packed: dict) -> torch.Tensor:
+    """The fee phase's per-slot mask (maxFeeTx,), on every slot's own
+    constraints and on the fee chain."""
     fee_old_root = torch.cat([packed["im_init_state_root_fee"],
                               packed["im_state_root_fee"]], dim=-1)
     fee_root, fee_ok = fee_tx(
@@ -39,7 +36,36 @@ def check_batch(packed: dict, n_tx: int, n_levels: int, max_l1_tx: int,
     # no im pin) -- keeps the mask slot-local so a corrupted fee slot is
     # attributable (src/rollup-main.circom:419-424)
     chain_ok = fr.eq(fee_root[:, :-1], packed["im_state_root_fee"])
-    fee_ok = fee_ok & torch.cat([chain_ok, torch.ones_like(chain_ok[:1])])
-    lane_ok, fee_ok = fr.to_numpy(lane_ok), fr.to_numpy(fee_ok)
+    return fee_ok & torch.cat([chain_ok, torch.ones_like(chain_ok[:1])])
+
+
+def check_batch(packed: dict, n_tx: int, n_levels: int, max_l1_tx: int,
+                max_fee_tx: int) -> dict:
+    """packed: `pack_rollup_inputs`' tensors (their device decides where
+    this runs). Returns dict(ok, lane_ok (nTx,), fee_ok (maxFeeTx,)) as
+    host numpy -- which lane / fee slot violated a constraint."""
+    chains = build_chains(packed, n_tx, max_fee_tx)
+    _, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
+                                   max_fee_tx)
+    lane_ok, fee_ok = fr.to_numpy(lane_ok), fr.to_numpy(_fee_ok(packed))
     return dict(ok=bool(lane_ok.all() and fee_ok.all()),
                 lane_ok=lane_ok, fee_ok=fee_ok)
+
+
+def check_batch_sharded(mesh, packed: dict, n_tx: int, n_levels: int,
+                        max_l1_tx: int, max_fee_tx: int) -> dict:
+    """`check_batch` with the tx lanes cut over `mesh`
+    (`parallel.make_tx_mesh`): every rank is handed the whole batch and
+    checks its own lanes; the verdict is an all-reduce of the failure
+    counts, the fee phase runs on every rank, and the per-lane mask is
+    gathered whole. Every rank returns the same dict(ok, lane_ok (nTx,),
+    fee_ok (maxFeeTx,)), host numpy."""
+    t_loc = sharding.lanes_per_rank(mesh, n_tx)
+    chains = build_chains(packed, n_tx, max_fee_tx)
+    inp, ch = sharding.local_lanes(mesh, packed, chains, t_loc)
+    _, lane_ok, n_bad = sharding.sharded_lanes(inp, ch, n_tx, t_loc,
+                                               n_levels, max_fee_tx, mesh)
+    fee_ok = _fee_ok(inp)
+    lane_ok = sharding.gather_lanes(lane_ok, 0, mesh)
+    return dict(ok=bool((n_bad == 0) & fee_ok.all()),
+                lane_ok=fr.to_numpy(lane_ok), fee_ok=fr.to_numpy(fee_ok))

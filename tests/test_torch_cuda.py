@@ -1,8 +1,8 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
 the suite's batches through `RollupEngine` on `cuda`, withdrawals through
-`WithdrawEngine` on `cuda`, and `trace` on `cuda` against `trace` on the
-CPU. These tests need a
-CUDA device and skip without one. They import no JAX, so they also run on a
+`WithdrawEngine` on `cuda`, `trace` on `cuda` against `trace` on the
+CPU, and the sharded path in a world of one over NCCL against
+`run_packed`. These tests need a CUDA device and skip without one. They import no JAX, so they also run on a
 machine that has none:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -26,8 +26,8 @@ from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
 from circuits_tpu_torch.scripts import (eddsa_cases, exp_mxu_inkernel,
                                         withdraw_cases)
 
-from torch_compare import (SUITE_CONFIG, assert_same, oracle_outputs,
-                           suite_batches)
+from torch_compare import (RQ_CONFIG, SUITE_CONFIG, assert_same,
+                           oracle_outputs, rq_batches, suite_batches)
 
 pytestmark = pytest.mark.gpu
 
@@ -205,3 +205,32 @@ def test_trace_on_cuda_equals_trace_on_cpu(cuda):
     for name in want:
         assert got[name] == want[name], name
     assert got["lane_ok"] == [True] * SUITE_CONFIG[0]
+
+
+def test_world_of_one_over_nccl_equals_run_packed(cuda):
+    """The sharded path in a world of one (NCCL, in process) on a batch
+    whose rq-linked pair sits on lanes 1 and 2: every output equal to
+    `run_packed`'s, the hash to the builder's, through every kernel of the
+    main path."""
+    import torch.distributed as dist
+    from circuits_tpu_torch.engine.witness import pack_rollup_inputs
+    from circuits_tpu_torch.parallel import (make_sharded_rollup_main,
+                                             make_tx_mesh)
+
+    bb = rq_batches()["past"]
+    packed = pack_rollup_inputs(bb.get_input(), *RQ_CONFIG, device=cuda)
+    mesh = make_tx_mesh(1, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        kernels.reset_launches()
+        out, ok = make_sharded_rollup_main(mesh, *RQ_CONFIG)(packed)
+        launches = dict(kernels.launches)
+    finally:
+        dist.destroy_process_group()
+    want, want_ok = RollupEngine(*RQ_CONFIG, device=cuda).run_packed(packed)
+    assert bool(ok) and bool(want_ok)
+    assert sorted(out) == sorted(want)
+    for k in want:
+        assert_same(out[k], want[k], k)
+    assert fr.unpack_int(out["hash_global_inputs"]) == bb.get_hash_inputs()
+    assert all(launches[k] > 0 for k in kernels.MAIN_PATH), launches

@@ -8,8 +8,9 @@ witness vector and checks it with the port's pure-Python checker, runs a
 batch of withdrawals through `WithdrawEngine` against the builder, runs both
 plain versions of the full-round experiment against its bigint mirror, and
 runs the 8-bit-limb Poseidon against K1's plain version, imports the CLI,
-and checks that neither `jax` nor `circuits_tpu` ever entered
-`sys.modules`. A second case: the engines with no `device` ask for the card
+runs the sharded path in a world of one (gloo, in process) against the
+builder, imports the two-process worker, and checks that neither `jax` nor
+`circuits_tpu` ever entered `sys.modules`. A second case: the engines with no `device` ask for the card
 and raise where there is none. A third: the CLI's `input`, then `witness
 --device cpu`, each in its own blocked subprocess."""
 
@@ -55,6 +56,10 @@ SCRIPT = BLOCK + textwrap.dedent("""
     from circuits_tpu_torch.ops import poseidon, poseidon_mxu, poseidon_rounds
     from circuits_tpu_torch.scripts import exp_mxu_inkernel
     from circuits_tpu_torch.tools import cli  # noqa: F401
+    from circuits_tpu_torch.parallel import (distributed,  # noqa: F401
+                                             make_sharded_rollup_main,
+                                             make_tx_mesh)
+    from circuits_tpu_torch.scripts import multihost_worker  # noqa: F401
     from torch_compare import SUITE_CONFIG, oracle_outputs, suite_batches
 
     engine = RollupEngine(*SUITE_CONFIG, device="cpu")
@@ -71,6 +76,12 @@ SCRIPT = BLOCK + textwrap.dedent("""
     assert values[1] == want["hash_global_inputs"]
     assert verify_witness(dict(zip(names, values)), *SUITE_CONFIG)["ok"]
     assert check_batch(engine.pack(inp), *SUITE_CONFIG)["ok"]
+    sharded = make_sharded_rollup_main(make_tx_mesh(1, device="cpu"),
+                                       *SUITE_CONFIG)
+    sout, sok = sharded(engine.pack(inp))
+    assert bool(sok)
+    assert fr.unpack_int(sout["hash_global_inputs"]) == \
+        want["hash_global_inputs"]
     lanes = withdraw_cases.exit_tree_batch(random.Random(1), 5, 8)
     lanes.append(withdraw_cases.tamper(lanes[0], "balance", 8))
     hashes, ok = WithdrawEngine(8, device="cpu").run(lanes)

@@ -57,6 +57,62 @@ def suite_batches() -> dict:
     return {"deposit": dep, "l2": l2}
 
 
+RQ_CONFIG = (4, 16, 2, 2)  # two ranks of two lanes each
+
+
+def rq_batches() -> dict:
+    """Three batches at RQ_CONFIG whose rq-linked pair (the reference's
+    test/rollup-main.test.js:619-696, after tests/test_engine_scenarios.py)
+    sits on lanes 1 and 2, across the boundary of two ranks of two lanes:
+    lane 0 is a transfer a3 -> a1, lane 3 a NOP, and
+    "past": tx (a1 -> a2) on lane 1, tx2 (a2 -> a1, rqOffset 7, pastTx[0])
+    on lane 2 -- valid, lane 2 reads lane 1;
+    "switched": tx2 on lane 1, tx on lane 2 -- lane 1's link fails;
+    "future": tx2 re-signed with rqOffset 1 (futureTx[0]) on lane 1, tx on
+    lane 2 -- valid, lane 1 reads lane 2.
+    The port's own builder, so this also runs without JAX."""
+    from circuits_tpu_torch.builder import float40
+    from circuits_tpu_torch.builder.account import HermezAccount
+    from circuits_tpu_torch.builder.rollup_db import RollupDB
+    from circuits_tpu_torch.builder.tx_utils import \
+        build_tx_compressed_data_v2
+
+    a1, a2, a3 = HermezAccount(1), HermezAccount(2), HermezAccount(3)
+    db = RollupDB()
+    for accounts in ((a1, a2), (a3,)):
+        bb = db.build_batch(*RQ_CONFIG)
+        for acc in accounts:
+            bb.add_tx(dict(fromIdx=0, loadAmountF=float40.fix2float(1000),
+                           tokenID=1, fromBjjCompressed=acc.bjjCompressed,
+                           fromEthAddr=acc.ethAddr, toIdx=0, onChain=True))
+        bb.build()
+        db.consolidate(bb)
+    tx0 = dict(fromIdx=258, toIdx=256, tokenID=1, amount=50, userFee=126,
+               nonce=0, onChain=0)
+    tx = dict(fromIdx=256, toIdx=257, tokenID=1, amount=150, userFee=126,
+              nonce=0, onChain=0)
+    tx2 = dict(fromIdx=257, toIdx=256, tokenID=1, amount=100, userFee=126,
+               nonce=0, onChain=0, rqOffset=7,
+               rqTxCompressedDataV2=build_tx_compressed_data_v2(tx),
+               rqToEthAddr=0, rqToBjjAy=0)
+    tx2b = dict(tx2, rqOffset=1)
+    a3.sign_tx(tx0)
+    a1.sign_tx(tx)
+    a2.sign_tx(tx2)
+    a2.sign_tx(tx2b)
+    out = {}
+    for name, txs in (("past", (tx0, tx, tx2)), ("switched", (tx0, tx2, tx)),
+                      ("future", (tx0, tx2b, tx))):
+        bb = db.build_batch(*RQ_CONFIG)
+        bb.add_token(1)
+        bb.add_fee_idx(256)
+        for t in txs:
+            bb.add_tx(t)
+        bb.build()  # the builder does not enforce rq links; the circuit does
+        out[name] = bb
+    return out
+
+
 def oracle_outputs(bb) -> dict:
     """The builder's public outputs of a batch, keyed as RollupEngine.run
     returns them."""
