@@ -34,8 +34,11 @@ Phases (any failure raises, and the exit code is then non-zero):
  6. time the host build, pack, first call and steady state;
  7. the full-round experiment (Poseidon t=3 full rounds, K5 with the MDS
     mix on the CUDA cores, K6 with it on the tensor cores): each kernel
-    exactly against its plain version at 1000 lanes x 3 rounds and at
-    65536 x 16 (timed), both against the bigint mirror and each other;
+    exactly against its plain version, both against the bigint mirror and
+    each other, at 1, 33 and 257 lanes (K6's geometry: 32 lanes a warp,
+    256 a block) x 0, 1 and 3 rounds, on the edge lanes of
+    scripts/rounds_cases.py x 1 and 3 rounds, at 1000 x 3 and at 65536 x
+    16 (timed; then both at 1, 4 and 16 rounds in turns);
     then its entry point `circuits_tpu_torch.scripts.exp_mxu_inkernel`
     at 65536 x 16, which must launch both kernels;
  8. Withdraw(32) on the card: `WithdrawEngine(32).run` on 32768 withdrawal
@@ -138,7 +141,7 @@ from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
     verify_withdraw_witness, verify_witness)
 from circuits_tpu_torch.scripts import (eddsa_cases,  # noqa: E402
                                         exp_mxu_inkernel, multihost_worker,
-                                        withdraw_cases)
+                                        rounds_cases, withdraw_cases)
 
 LANES = 1000
 RAGGED = (1, 33)  # lane counts below a warp's and a block's lanes
@@ -160,6 +163,9 @@ SOURCES = {
 }
 # the full-round experiment at the JAX script's defaults
 EXP_LANES, EXP_ROUNDS = 65536, 16
+# K6's geometry edges: one lane, a warp and one, a block (256 lanes) and one
+FULL_ROUND_EDGES = [(lanes, rounds) for lanes in (1, 33, 257)
+                    for rounds in (0, 1, 3)]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core peak, the same sheet
@@ -642,40 +648,73 @@ def check_sha(dev, rng):
                 f"SHA-256 != hashlib (lane {lane}/{lanes}, {nblocks} blocks)"
 
 
+def _rounds_case(dev, state, vals, rounds, sample, note="", timed=False):
+    """K5 and K6 on one state: each exactly against its plain version, the
+    two against each other and against the bigint mirror on the lanes of
+    `sample`; both timed (and their bounds reckoned) when `timed`."""
+    x = state.to(dev)
+    lanes = x.shape[-1]
+    # a t=3 full round: 9 products of x^5 and 9 of the mix; K6's mix is
+    # reckoned as 216 u8 mma.m16n8k32 (2 * 16 * 8 * 32 operations each)
+    # for every 32 lanes
+    work = rounds * lanes
+    pow5_s = 9 * work / rates["mont_mul"]
+    mix_mma_s = 216 * 2 * 16 * 8 * 32 * work / 32 / INT8_OPS_PER_S
+    outs = [compare(name, f"R={rounds} B={lanes}{note}",
+                    lambda fn=fn: fn(x, rounds),
+                    lambda plain=plain: plain(x, rounds), 10, timed,
+                    bound_of=(ops_s, 2 * nbytes(x)))
+            for name, fn, plain, ops_s in (
+                ("poseidon_rounds_vpu", poseidon_rounds.full_rounds_vpu,
+                 poseidon_rounds.full_rounds_vpu_plain, 2 * pow5_s),
+                ("poseidon_rounds_mxu", poseidon_rounds.full_rounds_mxu,
+                 poseidon_rounds.full_rounds_mxu_plain,
+                 pow5_s + mix_mma_s))]
+    assert torch.equal(outs[0], outs[1]), f"K5 and K6 differ ({note})"
+    got = fr.unpack_np(outs[0])
+    for lane in sorted(sample):
+        want = poseidon_rounds.full_rounds_py(
+            [vals[e][lane] for e in range(3)], rounds)
+        assert [int(got[e, lane]) for e in range(3)] == want, \
+            f"lane {lane} differs from the bigint mirror ({note})"
+    print(f"  K5 == K6 == bigint mirror on {len(sample)} lanes "
+          f"(R={rounds} B={lanes}{note})", flush=True)
+
+
 def check_full_rounds(dev, rng):
     """K5 and K6 against their plain versions, the bigint mirror and each
-    other; then the experiment's entry point with the counts from 0.
-    Returns the launches of that run."""
+    other: at the edges of K6's geometry (1, 33 and 257 lanes, below a
+    warp's, a block's and a block's plus one, at 0, 1 and 3 rounds; the
+    edge lanes of scripts/rounds_cases.py), then at 1000 x 3 and, timed,
+    at 65536 x 16; then the experiment's entry point with the counts from
+    0. Returns the launches of that run."""
+    t0 = time.perf_counter()
+    for lanes, rounds in FULL_ROUND_EDGES:
+        state, vals = exp_mxu_inkernel.random_state(lanes)
+        _rounds_case(dev, state, vals, rounds, range(lanes))
+    state, vals = rounds_cases.edge_lanes()
+    for rounds in (1, 3):
+        _rounds_case(dev, state, vals, rounds, range(len(vals[0])),
+                     note=" edge lanes")
+    print(f"  the geometry edges took {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for lanes, rounds in ((LANES, 3), (EXP_LANES, EXP_ROUNDS)):
         state, vals = exp_mxu_inkernel.random_state(lanes)
-        x = state.to(dev)
-        timed = lanes == EXP_LANES
-        # a t=3 full round: 9 products of x^5 and 9 of the mix; K6 does
-        # the mix as 216 u8 mma.m16n8k32 (2 * 16 * 8 * 32 operations each)
-        # for every 32 lanes
-        work = rounds * lanes
-        pow5_s = 9 * work / rates["mont_mul"]
-        mix_mma_s = 216 * 2 * 16 * 8 * 32 * work / 32 / INT8_OPS_PER_S
-        outs = [compare(name, f"R={rounds} B={lanes}",
-                        lambda fn=fn: fn(x, rounds),
-                        lambda plain=plain: plain(x, rounds), 10, timed,
-                        bound_of=(ops_s, 2 * nbytes(x)))
-                for name, fn, plain, ops_s in (
-                    ("poseidon_rounds_vpu", poseidon_rounds.full_rounds_vpu,
-                     poseidon_rounds.full_rounds_vpu_plain, 2 * pow5_s),
-                    ("poseidon_rounds_mxu", poseidon_rounds.full_rounds_mxu,
-                     poseidon_rounds.full_rounds_mxu_plain,
-                     pow5_s + mix_mma_s))]
-        assert torch.equal(outs[0], outs[1]), "K5 and K6 differ"
-        got = fr.unpack_np(outs[0])
         sample = {0, 777, lanes - 1} | set(rng.sample(range(lanes), 29))
-        for lane in sorted(sample):
-            want = poseidon_rounds.full_rounds_py(
-                [vals[e][lane] for e in range(3)], rounds)
-            assert [int(got[e, lane]) for e in range(3)] == want, \
-                f"lane {lane} differs from the bigint mirror"
-        print(f"  K5 == K6 == bigint mirror on {len(sample)} lanes "
-              f"(R={rounds} B={lanes})", flush=True)
+        _rounds_case(dev, state, vals, rounds, sample,
+                     timed=lanes == EXP_LANES)
+    # a round's cost apart from the state's load and store: both kernels
+    # at 1, 4 and 16 rounds, timed in turns (K5, K6, K6, K5)
+    x = state.to(dev)
+    fns = (("K5", poseidon_rounds.full_rounds_vpu),
+           ("K6", poseidon_rounds.full_rounds_mxu))
+    for rounds in (1, 4, EXP_ROUNDS):
+        ms = collections.defaultdict(list)
+        for name, fn in fns + fns[::-1]:
+            ms[name].append(kernel_ms(lambda fn=fn: fn(x, rounds), 10))
+        print(f"  {EXP_LANES} lanes x {rounds} rounds: "
+              + ", ".join(f"{n} {statistics.mean(v):.4f} ms"
+                          for n, v in ms.items()), flush=True)
     kernels.reset_launches()
     exp_mxu_inkernel.run(EXP_LANES, EXP_ROUNDS, dev)
     launches = {k: kernels.launches[k]
@@ -1323,8 +1362,10 @@ def main() -> None:
           f"({n_tx / steady:.1f} tx/s)", flush=True)
 
     # 7 - the full-round experiment
+    t0 = time.perf_counter()
     print("full-round experiment (exact):", flush=True)
     launches.update(check_full_rounds(dev, rng))
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 8 - Withdraw on the card
     t0 = time.perf_counter()

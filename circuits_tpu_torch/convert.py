@@ -153,6 +153,8 @@ def mix_matrices():
       the low 32 bytes of T it gives the columns of q = lo * N' mod 2^256.
     * Wp (65, 32): Wp[i + k, i] = byte k of p; times q's bytes it gives
       the columns of q * p. Rows 63 and 64 are zero.
+
+    K6 takes Wm alone, as `mix_fragments`; the plain version all three.
     """
     t = ROUNDS_T
     m = _optimized(t)["m"]
@@ -170,6 +172,39 @@ def mix_matrices():
         wn[i:, i] = nb[:32 - i]
         wp[i:i + 32, i] = pb
     return wm, wn, wp
+
+
+def mix_byte_column(nt: int, n: int) -> int:
+    """The byte of T_e that column n (0..7) of n-tile nt (0..7) of K6's
+    product holds: the permutation that gives the thread in place c of a
+    quad (columns 2c, 2c + 1 of every n-tile) bytes 16c .. 16c + 15, each
+    pair of n-tiles 2u, 2u + 1 one word."""
+    return 16 * (n >> 1) + 4 * (nt >> 1) + 2 * (nt & 1) + (n & 1)
+
+
+@lru_cache(maxsize=None)
+def mix_fragments() -> np.ndarray:
+    """K6's B operand, Wm^T with its columns permuted by
+    `mix_byte_column`, in the register order of mma.m16n8k32's B fragment:
+    (3, 8, 3, 32, 2) uint32 over (element e, n-tile nt, k-step j, thread,
+    register). Thread 4g + c's register i holds column g at depths
+    16i + 4c .. 16i + 4c + 3, lower depth in the lower byte; depth k of
+    k-step j is byte k of state[j], column n of n-tile nt is byte
+    `mix_byte_column(nt, n)` of T_e."""
+    wm, _, _ = mix_matrices()
+    t = ROUNDS_T
+    out = np.zeros((t, 8, t, 32, 2), dtype=np.uint32)
+    for e in range(t):
+        for nt in range(8):
+            for j in range(t):
+                for lane in range(32):
+                    g, c = lane >> 2, lane & 3
+                    row = wm[e * 64 + mix_byte_column(nt, g), j * 32:]
+                    for i in range(2):
+                        k = 16 * i + 4 * c
+                        out[e, nt, j, lane, i] = int.from_bytes(
+                            bytes(row[k:k + 4].tolist()), "little")
+    return out
 
 
 def rounds_state_from_jax(x) -> torch.Tensor:

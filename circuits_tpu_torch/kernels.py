@@ -127,7 +127,7 @@ def lib() -> ctypes.CDLL:
             "ctpu_sha256_narrow_lanes": [P],
             "ctpu_rounds_init": [P, I],
             "ctpu_rounds_vpu": [P, P, I, L, P],
-            "ctpu_rounds_mxu": [P, P, P, P, P, I, L, P],
+            "ctpu_rounds_mxu": [P, P, P, I, L, P],
             "ctpu_mont_rate": [P, I, I, I, I, P],
         }
         for name, argtypes in sigs.items():

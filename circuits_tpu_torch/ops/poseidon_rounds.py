@@ -8,11 +8,13 @@ kernel:
 
 * `full_rounds_vpu` (K5, csrc/poseidon_rounds.cu): the mix as nine
   Montgomery products. Plain version `full_rounds_vpu_plain`.
-* `full_rounds_mxu` (K6, same file): the mix and its Montgomery reduction
-  as three integer matrix products on 8-bit limbs (the banded matrices of
-  `convert.mix_matrices`), then byte carries and one conditional subtract
-  of p. Plain version `full_rounds_mxu_plain`, whose products run in
-  float64 (every column is below 2^23, far inside float64's exact range).
+* `full_rounds_mxu` (K6, same file): the mix as an integer matrix product
+  on 8-bit limbs on the tensor cores (Wm of `convert.mix_matrices`, passed
+  in fragment order as `convert.mix_fragments`), word carries and a
+  Montgomery reduction in word rows, then one conditional subtract of p.
+  Plain version `full_rounds_mxu_plain`: the mix and its reduction as
+  three matrix products (Wm, Wn, Wp) in float64 (every column is below
+  2^23, far inside float64's exact range) and byte carries.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. `full_rounds_py` is the bigint mirror both are held against.
@@ -22,10 +24,11 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from .. import kernels
-from ..convert import ROUNDS_T, mix_matrices, rounds_tables
+from ..convert import ROUNDS_T, mix_fragments, mix_matrices, rounds_tables
 from ..field import fr
 from ..field import scalar
 from . import poseidon_constants
@@ -45,9 +48,9 @@ def _tables(device: torch.device):
 
 
 @lru_cache(maxsize=None)
-def _mix_bytes(device: torch.device):
-    """Wm, Wn, Wp as uint8 tensors on `device` (the kernel's operands)."""
-    return tuple(torch.from_numpy(w).to(device) for w in mix_matrices())
+def _mix_fragments(device: torch.device) -> torch.Tensor:
+    """K6's operand: Wm^T's B fragments, int32 words on `device`."""
+    return torch.from_numpy(mix_fragments().view(np.int32)).to(device)
 
 
 @lru_cache(maxsize=None)
@@ -155,21 +158,25 @@ def full_rounds_vpu(state: torch.Tensor, rounds: int) -> torch.Tensor:
 def full_rounds_mxu(state: torch.Tensor, rounds: int) -> torch.Tensor:
     """(16, 3, B) Montgomery in/out. Wrapper of kernel K6."""
     def call(so, out):
-        wm, wn, wp = _mix_bytes(state.device)
         return so.ctpu_rounds_mxu(
-            kernels.ptr(state), kernels.ptr(out), kernels.ptr(wm),
-            kernels.ptr(wn), kernels.ptr(wp), rounds, state.shape[-1],
-            kernels.stream_ptr(state.device))
+            kernels.ptr(state), kernels.ptr(out),
+            kernels.ptr(_mix_fragments(state.device)), rounds,
+            state.shape[-1], kernels.stream_ptr(state.device))
 
     return _launch("poseidon_rounds_mxu", state, rounds,
                    full_rounds_mxu_plain, call)
+
+
+@lru_cache(maxsize=None)
+def _optimized_constants():
+    return poseidon_constants.optimized_constants(ROUNDS_T)
 
 
 def full_rounds_py(state: list[int], rounds: int) -> list[int]:
     """Bigint mirror: `rounds` full rounds on one lane's three Montgomery
     values; returns Montgomery values."""
     P, R = scalar.P, scalar.R
-    oc = poseidon_constants.optimized_constants(ROUNDS_T)
+    oc = _optimized_constants()
     s = [v * pow(R, -1, P) % P for v in state]
     for r in range(rounds):
         c = oc["full_c"][r % len(oc["full_c"])]

@@ -24,7 +24,7 @@ from circuits_tpu_torch.field import fr, scalar
 from circuits_tpu_torch.ops import (babyjubjub, poseidon, poseidon_rounds,
                                     sha256, smt)
 from circuits_tpu_torch.scripts import (eddsa_cases, exp_mxu_inkernel,
-                                        withdraw_cases)
+                                        rounds_cases, withdraw_cases)
 
 from torch_compare import (RQ_CONFIG, SUITE_CONFIG, assert_same,
                            oracle_outputs, rq_batches, suite_batches)
@@ -154,19 +154,28 @@ def test_engine_on_cuda_matches_builder_through_the_kernels(cuda):
 
 
 def test_full_round_kernels_match_plain_each_other_and_mirror(cuda):
-    rounds = 3
-    state, vals = exp_mxu_inkernel.random_state(LANES)
-    x = state.to(cuda)
-    vpu = poseidon_rounds.full_rounds_vpu(x, rounds)
-    mxu = poseidon_rounds.full_rounds_mxu(x, rounds)
-    assert_same(vpu, poseidon_rounds.full_rounds_vpu_plain(x, rounds))
-    assert_same(mxu, poseidon_rounds.full_rounds_mxu_plain(x, rounds))
-    assert_same(vpu, mxu)
-    got = fr.unpack_np(vpu)
-    for lane in (0, 151, LANES - 1):
-        want = poseidon_rounds.full_rounds_py(
-            [vals[e][lane] for e in range(3)], rounds)
-        assert [int(got[e, lane]) for e in range(3)] == want, lane
+    """K5 and K6 at LANES x 3 rounds, at K6's geometry edges (1, 33 and 257
+    lanes: 32 lanes a warp, 256 a block) x 0, 1 and 3 rounds, and on the
+    edge lanes of scripts/rounds_cases.py: each against its plain version,
+    the two against each other and the bigint mirror."""
+    cases = [(exp_mxu_inkernel.random_state(lanes), rounds)
+             for lanes, rounds in [(LANES, 3)] + [
+                 (n, r) for n in (1, 33, 257) for r in (0, 1, 3)]]
+    cases += [(rounds_cases.edge_lanes(), r) for r in (1, 3)]
+    for (state, vals), rounds in cases:
+        x = state.to(cuda)
+        lanes = x.shape[-1]
+        vpu = poseidon_rounds.full_rounds_vpu(x, rounds)
+        mxu = poseidon_rounds.full_rounds_mxu(x, rounds)
+        assert_same(vpu, poseidon_rounds.full_rounds_vpu_plain(x, rounds))
+        assert_same(mxu, poseidon_rounds.full_rounds_mxu_plain(x, rounds))
+        assert_same(vpu, mxu)
+        got = fr.unpack_np(vpu)
+        for lane in sorted({0, lanes // 2, lanes - 1}):
+            want = poseidon_rounds.full_rounds_py(
+                [vals[e][lane] for e in range(3)], rounds)
+            assert [int(got[e, lane]) for e in range(3)] == want, \
+                (lanes, rounds, lane)
 
 
 @pytest.mark.parametrize("lanes", [1, "past"])

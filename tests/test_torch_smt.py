@@ -144,3 +144,67 @@ def test_wrapper_refuses_other_devices():
                             torch.zeros((3, 2), **meta),
                             torch.zeros((3, 5, 2), **meta),
                             *(torch.zeros((16, 2), **meta),) * 3)
+
+
+def _k2_mirror(sib_f, bits_f, masks_f, old1leaf, new1leaf, new1h):
+    """K2's level loop as csrc/smt.cu walks it. Eight threads a lane make
+    4 lanes a warp; a level is hashed for a warp's lanes only where some
+    lane of the warp has `top` or `bot` (the warp vote), and its hashes are
+    zeros otherwise; a dead lane at the ragged end walks lane B - 1 again
+    and stores nothing. The two hashes a lane: group 0 the old chain, group
+    1 the bottom pair under `bot` and the new chain otherwise. Returns
+    (old, new, the (warp, level) pairs hashed and skipped, per level)."""
+    n, _, b = sib_f.shape
+    warps = -(-b // 4)
+    idx = torch.tensor([min(lane, b - 1) for lane in range(4 * warps)])
+    sib, bits, masks = sib_f[:, :, idx], bits_f[:, idx], masks_f[:, :, idx]
+    old1, new1, n1h = old1leaf[:, idx], new1leaf[:, idx], new1h[:, idx]
+    zero = torch.zeros_like(old1)
+    oldc = newc = zero
+    hashed, skipped = [], []
+    for lvl in range(n):
+        top, old0, bot, new1m, upd = (masks[lvl, j].bool() for j in range(5))
+        vote = (top | bot).reshape(warps, 4).any(dim=1)
+        hashed.append({w for w in range(warps) if vote[w]})
+        skipped.append({w for w in range(warps) if not vote[w]})
+        oh, xh = zero.clone(), zero.clone()
+        lanes = vote.repeat_interleave(4).nonzero().flatten()
+        if len(lanes):
+            bit, s = bits[lvl, lanes].bool(), sib[lvl][:, lanes]
+            oc, nc = oldc[:, lanes], newc[:, lanes]
+            s1 = fr.select(bot[lanes], zero[:, lanes], s)
+            h = smt._hash0_plain(
+                torch.cat([fr.select(bit, s, oc), fr.select(bit, s1, nc)], 1),
+                torch.cat([fr.select(bit, oc, s), fr.select(bit, nc, s1)], 1))
+            oh[:, lanes], xh[:, lanes] = h[:, :len(lanes)], h[:, len(lanes):]
+        old_up = fr.select(top, oh, zero)
+        old_up = fr.select(bot | new1m | upd, old1, old_up)
+        new_up = fr.select(top | bot, xh, zero)
+        new_up = fr.select(new1m, n1h, new_up)
+        new_up = fr.select(old0 | upd, new1, new_up)
+        oldc, newc = old_up, new_up
+    return oldc[:, :b], newc[:, :b], hashed, skipped
+
+
+@pytest.mark.parametrize("lanes", [17, 30])
+def test_k2_warp_vote_mirror_equals_plain(cases, lanes):
+    """The mirror of K2's warp-vote level skip == `processor_chain_plain`
+    at lane counts that are not a multiple of 4 (a ragged last warp), on
+    warps whose lanes act at different levels, where some warps skip a
+    level that others hash."""
+    ops = [cases[0][(7 * i) % 17] for i in range(lanes)]
+    args = {k: to_torch(v) for k, v in _args(ops).items()}
+    del args["old_root"]
+    cargs = smt.chain_args(**args)
+    old, new, hashed, skipped = _k2_mirror(*cargs)
+    want_old, want_new = smt.processor_chain_plain(*cargs)
+    assert_same(old, want_old, "old")
+    assert_same(new, want_new, "new")
+    masks = cargs[2]
+    act = (masks[:, 0] | masks[:, 2]).bool()  # (levels, lanes)
+    # the lowest level at which each lane hashes: several in one warp
+    first = [int(act[:, i].nonzero()[0]) if act[:, i].any() else -1
+             for i in range(lanes)]
+    assert any(len(set(first[w:w + 4])) > 1 for w in range(0, lanes, 4))
+    assert any(h and s for h, s in zip(hashed, skipped))
+    assert sum(map(len, skipped)) > 0 and sum(map(len, hashed)) > 0
