@@ -24,12 +24,15 @@ Phases (any failure raises, and the exit code is then non-zero):
     the time of one lane's own chain of dependent products;
  4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
-    token), run `RollupEngine(...).run` on the card, hold the hash, roots
+    token), capture the engine as a CUDA graph (`RollupEngine.compile`,
+    engine/aot.py: timed, its node count and memory kept for phase 13),
+    run `RollupEngine(...).run` on the card (a replay), hold the hash, roots
     and newLastIdx exactly against the builder, and require that every
     kernel of that path (kernels.MAIN_PATH) was launched during that run;
     then record the arguments of that path's K1 and K2 calls in one more
-    run, and check and time K2 on the batch's own 4096-lane call, whose
-    masks give its bound;
+    run on the eager route (`run_packed_eager`: a replay calls no Python
+    wrapper), and check and time K2 on the batch's own 4096-lane call,
+    whose masks give its bound;
  5. tamper one lane's signature scalar and require ok == False;
  6. time the host build, pack, first call and steady state;
  7. the full-round experiment (Poseidon t=3 full rounds, K5 with the MDS
@@ -48,9 +51,10 @@ Phases (any failure raises, and the exit code is then non-zero):
     known lanes tampered (balance, sibling, idx, idx past 2^nLevels) refuses
     exactly those; K1 and K4 launched (K4 once, above its narrow route's
     lane limit, so on its wide route) and K2, K3 not; the same on one lane
-    (K4's narrow route); the path's K1 and K4 calls recorded; `run_packed`
-    timed (median of 5, each ending in a host copy of the hashes), and its
-    layers (state hash, verifier, hash) each on their own;
+    (K4's narrow route), each width its own captured graph; the path's K1
+    and K4 calls recorded on the eager route; `run_packed` timed (median of
+    5, each ending in a host copy of the hashes), and its layers (state
+    hash, verifier, hash) each on their own;
  9. the debug paths on phase 4's batch: `_full_debug` gives `run`'s
     outputs and verdict, `trace` agrees with the builder's input on
     lane_ok, decode.fromIdx and the chain of newStateRoot, `check_batch`
@@ -72,9 +76,9 @@ Phases (any failure raises, and the exit code is then non-zero):
     64)), `witness`, `check` on it and on a copy with one balance changed,
     `trace` of one signal and `witnessfull` (the five that read the input
     side by side), each exit code and the hash `input` printed held; then
-    `compile 2048 32 256 64` alone, whose kernel library and first call give
-    the time a fresh process takes to its first witness; the seconds of
-    each verb;
+    `compile 2048 32 256 64` alone, whose kernel library, capture and first
+    replay give the time a fresh process takes to its first witness; the
+    seconds of each verb;
 12. the tx-lane sharded path (`circuits_tpu_torch/parallel`) on phase 4's
     batch: a world of one over NCCL in this process, its outputs limb-equal
     to `run_packed`, the hash to the builder's, every kernel of the main
@@ -83,7 +87,16 @@ Phases (any failure raises, and the exit code is then non-zero):
     card over gloo, fed one batch file that each runs twice: every hash
     the builder's, each rank's launches of K1-K4 and seconds printed, and
     `check_batch_sharded` on a copy with lanes 5 and 1024 (rank 1's first)
-    tampered names exactly those.
+    tampered names exactly those;
+13. the captured engines (engine/aot.py) on phase 4's and phase 8's
+    batches: the graph's outputs limb-equal to `run_packed_eager`'s and the
+    builder's; phase 5's tampered batch refused through the graph; batches
+    A, B, A (B a second production batch from the seed) replayed exactly;
+    Withdraw's tampered lanes refused through its graph, exactly those;
+    the capture's seconds, its node count (`cuGraphGetNodes`) and memory,
+    `torch.cuda.max_memory_allocated` of each route, and both routes'
+    `run_packed` medians of 5 for RollupMain and Withdraw, every run
+    printed.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -497,7 +510,8 @@ def check_main_path_calls(dev, engine, packed):
     """One more run of the batch with the K1 and K2 wrappers recorded: the
     shapes and counts of the main path's Poseidon calls, and K2 checked
     and timed on the batch's own widest call, whose masks give its bound."""
-    shapes, chain_calls, _ = record_calls(lambda: engine.run_packed(packed))
+    shapes, chain_calls, _ = record_calls(
+        lambda: engine.run_packed_eager(packed))
     print("main path's Poseidon calls (t, lanes) x count: "
           + ", ".join(f"{k} x {v}" for k, v in sorted(shapes.items())),
           flush=True)
@@ -750,6 +764,7 @@ def check_withdraw(rng, card):
     assert 1 <= edge < WITHDRAW_LANES, edge
 
     def run_counted(batch):
+        engine.compile(len(batch))  # its warm-up runs launch for real
         kernels.reset_launches()
         hashes, ok = engine.run(batch)
         sync()
@@ -798,7 +813,8 @@ def check_withdraw(rng, card):
     packed = engine.pack(lanes)
     sync()
     t_pack = time.perf_counter() - t0
-    k1, chain_calls, k4 = record_calls(lambda: engine.run_packed(packed))
+    k1, chain_calls, k4 = record_calls(
+        lambda: engine.run_packed_eager(packed))
     print("Withdraw path's Poseidon calls (t, lanes) x count: "
           + ", ".join(f"{k} x {v}" for k, v in sorted(k1.items()))
           + "; SHA-256 calls (blocks, lanes) x count: "
@@ -868,7 +884,7 @@ def check_withdraw(rng, card):
           f"lane, {hashes_k2} hashes selected, half of them the new chain's "
           f"that nobody reads; kernel={ms:.4f} ms bound={bound_ms:.4f} ms "
           f"({by})", flush=True)
-    return engine, lanes, launches
+    return engine, lanes, launches, packed
 
 
 def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
@@ -1187,10 +1203,169 @@ def check_sharded(engine, packed, bb, bad, card):
     return launches
 
 
-def production_batch(n_tx, n_levels, max_l1, max_fee):
+def capture_engine(engine):
+    """Phase 4's capture of RollupMain: `engine.compile()` timed, with the
+    most memory it held at once and what stays reserved after it (the
+    graph's private pool and its static inputs; the caching allocator's
+    free blocks are returned before and after)."""
+    sync()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    graph = engine.compile()
+    sync()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    stats = dict(seconds=seconds, steps=graph.seconds,
+                 nodes=graph.node_count(), counts=graph.counts,
+                 peak=torch.cuda.max_memory_allocated(),
+                 pool=torch.cuda.memory_reserved() - reserved)
+    print(f"captured RollupMain{engine.params} as a CUDA graph of "
+          f"{stats['nodes']} nodes in {stats['seconds']:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in graph.seconds.items())
+          + f"); launches a replay {graph.counts}", flush=True)
+    return stats
+
+
+def route_times(run, reps=5):
+    """`reps` synchronised runs of `run()`, which ends in a host copy; the
+    seconds of each, and the most memory allocated at once over them."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return times, torch.cuda.max_memory_allocated()
+
+
+def check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
+                   wpacked, rng, card):
+    """Phase 13: the captured engines against the eager route and the
+    builder, A/B/A replays, the tampered batches through the graphs, and
+    both routes' times and memory."""
+    gib = 2.0 ** 30
+
+    def same(a, b, what):
+        assert sorted(a) == sorted(b), what
+        for k in b:
+            assert torch.equal(a[k], b[k]), f"{what}: {k}"
+
+    def builder_equal(out, batch, what):
+        got = engine.unpack_outputs(out)
+        assert got["hash_global_inputs"] == batch.get_hash_inputs(), what
+        assert got["new_state_root"] == batch.get_new_state_root(), what
+        assert got["new_exit_root"] == batch.get_new_exit_root(), what
+        assert got["new_last_idx"] == batch.get_new_last_idx(), what
+
+    # A, B, A: graph against eager and builder, replays exact
+    t0 = time.perf_counter()
+    bb_b = production_batch(*engine.params, step=3, amount=777)
+    packed_b = engine.pack(bb_b.get_input())
+    t_b = time.perf_counter() - t0
+    a1, ok_a1 = engine.run_packed(packed)
+    b, ok_b = engine.run_packed(packed_b)
+    a2, ok_a2 = engine.run_packed(packed)
+    assert bool(ok_a1) and bool(ok_b) and bool(ok_a2)
+    eager_a, ok_ea = engine.run_packed_eager(packed)
+    eager_b, ok_eb = engine.run_packed_eager(packed_b)
+    assert bool(ok_ea) and bool(ok_eb)
+    same(a1, eager_a, "A, graph vs eager")
+    same(b, eager_b, "B, graph vs eager")
+    same(a2, a1, "A again")
+    assert a1["hash_global_inputs"].data_ptr() != \
+        a2["hash_global_inputs"].data_ptr()
+    builder_equal(a1, bb, "A")
+    builder_equal(b, bb_b, "B")
+    assert engine.unpack_outputs(a1) != engine.unpack_outputs(b)
+    _, ok_bad = engine.run_packed(engine.pack(bad))
+    assert not bool(ok_bad), "the graph accepted the tampered batch"
+    print(f"RollupMain{engine.params} graph: A, B, A and eager A, B limb for "
+          f"limb equal, A and B exact vs builder (B built in {t_b:.1f} s: "
+          "every account pays the one 3 on, 777 a transfer), the tampered "
+          "batch refused", flush=True)
+
+    # both routes' times and memory
+    def graph_run():
+        o, k = engine.run_packed(packed)
+        assert bool(k) and fr.unpack_int(o["hash_global_inputs"].cpu()) \
+            == bb.get_hash_inputs()
+
+    def eager_run():
+        o, k = engine.run_packed_eager(packed)
+        assert bool(k) and fr.unpack_int(o["hash_global_inputs"].cpu()) \
+            == bb.get_hash_inputs()
+
+    eager_t, eager_mem = route_times(eager_run)
+    graph_t, graph_mem = route_times(graph_run)
+    n_tx = engine.params[0]
+    print(f"RollupMain{engine.params} on {card}: capture "
+          f"{captured['seconds']:.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in captured["steps"].items())
+          + f"), {captured['nodes']} nodes; max_memory_allocated over the "
+          f"capture {captured['peak'] / gib:.3f} GiB, the graph's pool "
+          f"reserved {captured['pool'] / gib:.3f} GiB; run_packed median "
+          f"graph {statistics.median(graph_t):.4f} s "
+          f"{['%.4f' % t for t in graph_t]} "
+          f"({n_tx / statistics.median(graph_t):.1f} tx/s, "
+          f"max_memory_allocated {graph_mem / gib:.3f} GiB), eager "
+          f"{statistics.median(eager_t):.4f} s "
+          f"{['%.4f' % t for t in eager_t]} "
+          f"({n_tx / statistics.median(eager_t):.1f} tx/s, "
+          f"max_memory_allocated {eager_mem / gib:.3f} GiB)", flush=True)
+
+    # Withdraw: the graph against eager and builder, tampered lanes
+    lanes = len(wlanes)
+    wgraph = wengine.compile(lanes)
+    bad_w, kinds = list(wlanes), {}
+    for j, lane in enumerate(sorted(rng.sample(range(lanes), 64))):
+        kinds[lane] = withdraw_cases.TAMPERS[j % len(withdraw_cases.TAMPERS)]
+        bad_w[lane] = withdraw_cases.tamper(wlanes[lane], kinds[lane],
+                                            N_LEVELS)
+    wbad = wengine.pack(bad_w)
+    for what, p in (("valid", wpacked), ("tampered", wbad)):
+        h, ok = wengine.run_packed(p)
+        he, oke = wengine.run_packed_eager(p)
+        assert torch.equal(h, he) and torch.equal(ok, oke), what
+    h, ok = wengine.run_packed(wbad)
+    assert np.flatnonzero(~fr.to_numpy(ok)).tolist() == sorted(kinds)
+    assert [int(v) for v in fr.unpack_np(h)] == \
+        [hash_inputs_withdraw(d) for d in bad_w]
+
+    def wrun(fn):
+        def run():
+            hh, kk = fn(wpacked)
+            hh.cpu()
+            assert bool(kk.all())
+        return run
+
+    weager_t, weager_mem = route_times(wrun(wengine.run_packed_eager))
+    wgraph_t, wgraph_mem = route_times(wrun(wengine.run_packed))
+    print(f"Withdraw({N_LEVELS}) x {lanes} on {card}: graph == eager on the "
+          f"valid and the tampered batch, {len(kinds)} tampered lanes and "
+          f"only those refused through the graph; capture "
+          f"{sum(wgraph.seconds.values()):.3f} s ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in wgraph.seconds.items())
+          + f"), {wgraph.node_count()} nodes; run_packed median graph "
+          f"{statistics.median(wgraph_t):.4f} s "
+          f"{['%.4f' % t for t in wgraph_t]} "
+          f"({lanes / statistics.median(wgraph_t):.1f} withdrawals/s, "
+          f"max_memory_allocated {wgraph_mem / gib:.3f} GiB), eager "
+          f"{statistics.median(weager_t):.4f} s "
+          f"{['%.4f' % t for t in weager_t]} "
+          f"({lanes / statistics.median(weager_t):.1f} withdrawals/s, "
+          f"max_memory_allocated {weager_mem / gib:.3f} GiB)", flush=True)
+
+
+def production_batch(n_tx, n_levels, max_l1, max_fee, step=1, amount=1000):
     """The scripts/exp_production.py recipe: populate n_tx accounts with
-    L1 deposits, then one batch of n_tx signed L2 transfers (a ring) with
-    one fee token."""
+    L1 deposits, then one batch of n_tx signed L2 transfers (a ring, each
+    account paying `amount` to the one `step` places on) with one fee
+    token."""
     accounts = [HermezAccount(i + 1) for i in range(n_tx)]
     db = RollupDB()
     added = 0
@@ -1208,8 +1383,8 @@ def production_batch(n_tx, n_levels, max_l1, max_fee):
     bb.add_token(1)
     bb.add_fee_idx(256)
     for i in range(n_tx):
-        tx = dict(fromIdx=256 + i, toIdx=256 + ((i + 1) % n_tx), tokenID=1,
-                  amount=1000, userFee=126, nonce=0, onChain=0)
+        tx = dict(fromIdx=256 + i, toIdx=256 + ((i + step) % n_tx),
+                  tokenID=1, amount=amount, userFee=126, nonce=0, onChain=0)
         accounts[i].sign_tx(tx)
         bb.add_tx(tx)
     bb.build()
@@ -1316,6 +1491,7 @@ def main() -> None:
     packed = engine.pack(inp)
     sync()
     t_pack = time.perf_counter() - t0
+    captured = capture_engine(engine)
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1370,7 +1546,7 @@ def main() -> None:
     # 8 - Withdraw on the card
     t0 = time.perf_counter()
     print("Withdraw path:", flush=True)
-    wengine, wlanes, wlaunches = check_withdraw(rng, card)
+    wengine, wlanes, wlaunches, wpacked = check_withdraw(rng, card)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 9 - the debug paths and the witness vectors
@@ -1395,6 +1571,13 @@ def main() -> None:
     print("sharded path:", flush=True)
     slaunches = check_sharded(engine, packed, bb, bad, card)
     print(f"phase 12 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13 - the captured engines
+    t0 = time.perf_counter()
+    print("captured engines:", flush=True)
+    check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
+                   wpacked, rng, card)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     rows = []
     for name, (source, replaces) in SOURCES.items():

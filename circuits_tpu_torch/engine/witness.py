@@ -10,6 +10,15 @@ run on the card ("cuda") unless the caller names another device, and raise
 where there is no card; they never carry on on the CPU by themselves. A
 caller who passes `device="cpu"` (the tests) gets the plain PyTorch
 versions.
+
+On the card an engine's `run_packed` replays its circuit captured as a CUDA
+graph (`engine/aot.py`), the counterpart of the JAX engines' `jax.jit`:
+captured by `compile()` or at the first `run_packed`, once per input shape.
+A capture or replay that fails raises; nothing falls back to the eager
+path. `run_packed_eager` runs the circuit op by op, for debugging and for
+callers that watch the Python kernel wrappers, which a replay never calls.
+On the CPU `run_packed` is the eager path. The debug paths (`trace`,
+`_full_debug`, `run_debug`) are eager on every device.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import numpy as np
 import torch
 
 from ..field import fr
+from .aot import CapturedCall, rollup_input_shapes, withdraw_input_shapes
 from ..models.rollup_main import (build_chains, global_tail, rollup_main,
                                   rollup_main_lanes)
 from ..models.withdraw import withdraw
@@ -140,12 +150,31 @@ class RollupEngine:
                  device="cuda"):
         self.params = (n_tx, n_levels, max_l1_tx, max_fee_tx)
         self.device = resolve_device(device)
+        # the compiled circuit: on the card the CapturedCall that
+        # `compile()` makes, on the CPU the eager function
+        self._fn = None if self.device.type == "cuda" else \
+            self.run_packed_eager
 
     def pack(self, inp: dict) -> dict:
         return pack_rollup_inputs(inp, *self.params, device=self.device)
 
+    def compile(self):
+        """Capture RollupMain at this engine's shapes (on the card, once)
+        and return the compiled call."""
+        if self._fn is None:
+            fn = CapturedCall(self.run_packed_eager,
+                              rollup_input_shapes(*self.params), self.device)
+            fn.capture()
+            self._fn = fn
+        return self._fn
+
     def run_packed(self, packed: dict):
-        """Packed tensors -> (outputs dict of tensors, ok 0-d tensor)."""
+        """Packed tensors -> (outputs dict of tensors, ok 0-d tensor),
+        through the compiled circuit."""
+        return self.compile()(packed)
+
+    def run_packed_eager(self, packed: dict):
+        """`run_packed` op by op: every kernel wrapper called from Python."""
         n_tx, n_levels, max_l1_tx, max_fee_tx = self.params
         return rollup_main(packed, n_tx=n_tx, n_levels=n_levels,
                            max_l1_tx=max_l1_tx, max_fee_tx=max_fee_tx)
@@ -320,13 +349,34 @@ class WithdrawEngine:
     def __init__(self, n_levels, device="cuda"):
         self.n_levels = n_levels
         self.device = resolve_device(device)
+        # lanes -> the compiled circuit at that batch width (on the card)
+        self._fns: dict[int, CapturedCall] = {}
 
     def pack(self, inputs: list[dict]) -> dict:
         return pack_withdraw_inputs(inputs, self.n_levels, self.device)
 
-    def run_packed(self, packed: dict, debug: bool = False):
-        """Packed tensors -> (hash (16, B), ok (B,) bool) tensors; with
-        `debug` a third intermediates dict."""
+    def compile(self, lanes: int):
+        """Capture Withdraw at `lanes` withdrawals (on the card, once per
+        width) and return the compiled call; on the CPU the eager
+        function."""
+        if self.device.type != "cuda":
+            return self.run_packed_eager
+        if lanes not in self._fns:
+            fn = CapturedCall(self.run_packed_eager,
+                              withdraw_input_shapes(self.n_levels, lanes),
+                              self.device)
+            fn.capture()
+            self._fns[lanes] = fn
+        return self._fns[lanes]
+
+    def run_packed(self, packed: dict):
+        """Packed tensors -> (hash (16, B), ok (B,) bool) tensors, through
+        the compiled circuit of B lanes."""
+        return self.compile(packed["root_exit"].shape[-1])(packed)
+
+    def run_packed_eager(self, packed: dict, debug: bool = False):
+        """`run_packed` op by op; with `debug` a third intermediates
+        dict."""
         return withdraw(self.n_levels, **packed, debug=debug)
 
     def run(self, inputs: list[dict]):
@@ -339,5 +389,5 @@ class WithdrawEngine:
     def run_debug(self, inputs: list[dict]):
         """Like run() but also returns the intermediates dict (the
         witness-vector export path)."""
-        h, ok, dbg = self.run_packed(self.pack(inputs), debug=True)
+        h, ok, dbg = self.run_packed_eager(self.pack(inputs), debug=True)
         return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok), dbg

@@ -84,11 +84,28 @@ def _limbs_of(x: int, n: int = N_LIMBS) -> list[int]:
     return [(x >> (LIMB_BITS * i)) & MASK for i in range(n)]
 
 
-def _col(limbs, ndim: int, device) -> torch.Tensor:
-    """Limb list -> (n, 1, ..., 1) tensor broadcasting over `ndim - 1`
-    batch axes."""
+# Constant columns on their device, each built once from the host at its
+# first use: (limbs, ndim, device) -> tensor. A step captured as a CUDA
+# graph (engine/aot.py) may copy nothing from the host, and in eager use a
+# fresh constant is a host round trip per call. Every caller only reads
+# them: nothing writes a cached tensor in place.
+_COLS: dict[tuple, torch.Tensor] = {}
+
+
+def _build_col(limbs: tuple, ndim: int, device) -> torch.Tensor:
     t = torch.tensor(limbs, dtype=_I64, device=device)
     return t.reshape((len(limbs),) + (1,) * (ndim - 1))
+
+
+def _col(limbs, ndim: int, device) -> torch.Tensor:
+    """Limb list -> (n, 1, ..., 1) tensor broadcasting over `ndim - 1`
+    batch axes; the cached one of `_COLS`, never to be written."""
+    key = (tuple(limbs), ndim,
+           None if device is None else torch.device(device))
+    t = _COLS.get(key)
+    if t is None:
+        t = _COLS[key] = _build_col(*key)
+    return t
 
 
 def const(x: int, batch_shape=(), device=None) -> torch.Tensor:

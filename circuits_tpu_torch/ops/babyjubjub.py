@@ -188,15 +188,22 @@ def scalar_mul_base8(bits):
     return _sum_points(_base8_points(bits))
 
 
+@lru_cache(maxsize=None)
+def _digit_weights(ndim: int, device: torch.device) -> torch.Tensor:
+    """(1, 4, 1, ...) weights 1, 2, 4, 8 of a radix-16 digit's bits over
+    `ndim` batch axes, on `device`; built once, only read."""
+    w = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=device)
+    return w.reshape((1, 4) + (1,) * ndim)
+
+
 def _digits(bits: torch.Tensor) -> torch.Tensor:
     """bits (nbits, *batch) 0/1 LSB-first -> (64, *batch) int64 radix-16
     digits, least significant first."""
     bshape = bits.shape[1:]
     if bits.shape[0] < 256:
         bits = torch.cat([bits, bits.new_zeros((256 - bits.shape[0],) + bshape)])
-    w = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=bits.device)
-    return (bits.to(torch.int64).reshape((64, 4) + bshape)
-            * w.reshape((1, 4) + (1,) * len(bshape))).sum(dim=1)
+    w = _digit_weights(len(bshape), bits.device)
+    return (bits.to(torch.int64).reshape((64, 4) + bshape) * w).sum(dim=1)
 
 
 def _gather_points(table, digit):

@@ -28,6 +28,18 @@ def _tables(device: torch.device):
             torch.tensor(h0.astype("int64"), device=device))
 
 
+@lru_cache(maxsize=None)
+def _padding(nbits: int, device: torch.device) -> torch.Tensor:
+    """The padding bits after an `nbits`-bit message (a one, zeros, the
+    64-bit length), on `device`; built once, only read."""
+    total = (nbits + 65 + 511) // 512 * 512
+    pad = [0] * (total - nbits)
+    pad[0] = 1
+    for i in range(64):
+        pad[-64 + i] = (nbits >> (63 - i)) & 1
+    return torch.tensor(pad, dtype=torch.int64, device=device)
+
+
 def _rotr(x, n):
     return ((x >> n) | (x << (32 - n))) & _M32
 
@@ -95,11 +107,7 @@ def sha256_bits(bits: torch.Tensor) -> torch.Tensor:
     bshape = tuple(bits.shape[1:])
     nblocks = (nbits + 65 + 511) // 512
     total = nblocks * 512
-    pad = [0] * (total - nbits)
-    pad[0] = 1
-    for i in range(64):
-        pad[-64 + i] = (nbits >> (63 - i)) & 1
-    pad_t = torch.tensor(pad, dtype=torch.int64, device=bits.device)
+    pad_t = _padding(nbits, bits.device)
     allbits = torch.cat([bits.long().reshape(nbits, -1),
                          pad_t[:, None].expand(-1, math.prod(bshape))])
     weights = (1 << torch.arange(31, -1, -1, device=bits.device))[None, :,

@@ -3,9 +3,10 @@
     python -m circuits_tpu_torch.scripts.withdraw_profile [lanes] [n_levels]
 
 Builds an exit tree of `lanes` random leaves on the host (default 32768,
-nLevels 32), packs one withdrawal a leaf, runs `WithdrawEngine.run_packed`
-once to warm up (this builds the kernels), times it (median of 5
-synchronised runs), then traces one run with `torch.profiler` and prints the
+nLevels 32), packs one withdrawal a leaf, runs
+`WithdrawEngine.run_packed_eager` (the eager route, op by op, not the
+captured graph) once to warm up (this builds the kernels), times it (median
+of 5 synchronised runs), then traces one run with `torch.profiler` and prints the
 device's busy time, the number of launches, and the kernels that take most
 of it. The profiler slows the host down, so the busy share is given against
 both wall times.
@@ -34,7 +35,7 @@ def main(lanes: int = 32768, n_levels: int = 32) -> None:
     packed = engine.pack(batch)
 
     def run():
-        h, ok = engine.run_packed(packed)
+        h, ok = engine.run_packed_eager(packed)
         h = h.cpu()
         assert bool(ok.all())
 
@@ -58,8 +59,8 @@ def main(lanes: int = 32768, n_levels: int = 32) -> None:
     busy = sum(e.self_device_time_total for e in events) * 1e-6
     launches = sum(e.count for e in events)
     print(f"Withdraw({n_levels}) x {lanes} lanes on {card_line()}: "
-          f"run_packed median {wall:.4f} s; under the profiler {traced:.4f} "
-          f"s; device busy {busy:.4f} s in {launches} launches "
+          f"run_packed_eager median {wall:.4f} s; under the profiler "
+          f"{traced:.4f} s; device busy {busy:.4f} s in {launches} launches "
           f"({100 * busy / wall:.1f} % of the untraced time, "
           f"{100 * busy / traced:.1f} % of the traced one)", flush=True)
     if not events:

@@ -3,10 +3,11 @@
 tools/build-circuit.js and tools/generate-input.js):
 
   create  nTx nLevels maxL1Tx maxFeeTx   -> write circuit config dir
-  compile nTx nLevels maxL1Tx maxFeeTx   -> build the kernel library, then
-                                            make one first call of
-                                            RollupEngine.run on an example
-                                            batch; print the seconds of each
+  compile nTx nLevels maxL1Tx maxFeeTx   -> build the kernel library,
+                                            capture RollupMain as a CUDA
+                                            graph, then replay it once on
+                                            an example batch; print the
+                                            seconds of each
   compilewitness [params]                -> alias of compile
   input   nAccounts nTransfers [nTx nLevels maxL1Tx maxFeeTx]
                                          -> generate inputs-N.json (host
@@ -125,9 +126,10 @@ def cmd_create(args, device):
 
 
 def cmd_compile(args, device):
-    """Build the kernel library (nothing to build for the CPU), then one
-    first call of RollupEngine.run on `example_input`: the time a fresh
-    process takes to its first witness."""
+    """Build the kernel library and capture RollupMain as a CUDA graph
+    (nothing to build or capture for the CPU), then one first call of
+    RollupEngine.run on `example_input`, a replay on the card: the time a
+    fresh process takes to its first witness."""
     from .. import kernels
     from ..r1cs.constraints import total_constraints
 
@@ -138,12 +140,21 @@ def cmd_compile(args, device):
         so = kernels.build()
         kernels.prepare(eng.device)
         print(f"kernel library {so.name} ready in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        graph = eng.compile()
+        print(f"captured RollupMain({','.join(map(str, params))}) as a CUDA "
+              f"graph of {graph.node_count():,} nodes in "
+              f"{time.time() - t0:.1f}s (" + ", ".join(
+                  f"{k} {v:.1f}s" for k, v in graph.seconds.items()) + ")")
     else:
         print(f"no kernel library on {eng.device.type}: the plain versions "
               "run")
     inp = example_input(*params)
     t0 = time.time()
     _, ok = eng.run(inp)
+    if eng.device.type == "cuda":
+        print(f"first replay (pack and unpack included) in "
+              f"{time.time() - t0:.2f}s")
     if not ok:
         raise SystemExit("the example batch failed its constraints")
     print(f"compiled RollupMain({','.join(map(str, params))}) "

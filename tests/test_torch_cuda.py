@@ -1,8 +1,9 @@
 """The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
 the suite's batches through `RollupEngine` on `cuda`, withdrawals through
 `WithdrawEngine` on `cuda`, `trace` on `cuda` against `trace` on the
-CPU, and the sharded path in a world of one over NCCL against
-`run_packed`. These tests need a CUDA device and skip without one. They import no JAX, so they also run on a
+CPU, the sharded path in a world of one over NCCL against
+`run_packed`, and the engines' captured CUDA graphs (`engine/aot.py`)
+against their eager route and the builder. These tests need a CUDA device and skip without one. They import no JAX, so they also run on a
 machine that has none:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -195,8 +196,10 @@ def test_withdraw_engine_on_cuda_matches_builder(cuda, lanes):
             kinds[lane] = withdraw_cases.TAMPERS[j % 4]
             batch[lane] = withdraw_cases.tamper(batch[lane], kinds[lane],
                                                 n_levels)
+    engine = WithdrawEngine(n_levels, device=cuda)
+    engine.compile(lanes)  # the capture's warm-up runs launch for real
     kernels.reset_launches()
-    hashes, ok = WithdrawEngine(n_levels, device=cuda).run(batch)
+    hashes, ok = engine.run(batch)
     assert isinstance(ok, np.ndarray) and ok.dtype == np.bool_
     assert np.flatnonzero(~ok).tolist() == sorted(kinds)
     assert hashes == [hash_inputs_withdraw(d) for d in batch]
@@ -243,3 +246,92 @@ def test_world_of_one_over_nccl_equals_run_packed(cuda):
         assert_same(out[k], want[k], k)
     assert fr.unpack_int(out["hash_global_inputs"]) == bb.get_hash_inputs()
     assert all(launches[k] > 0 for k in kernels.MAIN_PATH), launches
+
+
+def _no_wrapper(*args, **kwargs):
+    raise AssertionError("a replay called a Python kernel wrapper")
+
+
+def test_captured_rollup_main_equals_eager_and_builder(cuda, monkeypatch):
+    """Batches A, B, A and a tampered A through one captured graph: each
+    output limb-equal to the eager route's, A's and B's to the builder's,
+    the tampered one refused; the replays call no Python kernel wrapper,
+    and the launches advance by the capture's counts a replay. (The CPU
+    tests hold the same bookkeeping against the JAX package, which the
+    card's machine does not have.)"""
+    from circuits_tpu_torch.engine import witness
+
+    engine = RollupEngine(*SUITE_CONFIG, device=cuda)
+    graph = engine.compile()
+    assert engine.compile() is graph and graph.node_count() > 1000
+    assert all(graph.counts[k] > 0 for k in kernels.MAIN_PATH), graph.counts
+    bbs = suite_batches()
+    bad = dict(bbs["l2"].get_input())  # get_input() keeps its dict
+    bad["s"] = list(bad["s"])
+    bad["s"][0] = (bad["s"][0] + 1) % scalar.P
+    inputs = [bbs["l2"].get_input(), bbs["deposit"].get_input(),
+              bbs["l2"].get_input(), bad]
+    packs = [engine.pack(inp) for inp in inputs]
+    eager = [engine.run_packed_eager(p) for p in packs]
+    kernels.reset_launches()
+    for mod, name in ((poseidon, "permute_mont"), (smt, "processor_chain"),
+                      (babyjubjub, "eddsa_ok_mont"),
+                      (sha256, "sha256_chain"), (witness, "rollup_main")):
+        monkeypatch.setattr(mod, name, _no_wrapper)
+    outs = [engine.run_packed(p) for p in packs]
+    monkeypatch.undo()
+    assert kernels.launches == {k: 4 * n for k, n in graph.counts.items()}
+    for (out, ok), (want, want_ok) in zip(outs, eager):
+        assert bool(ok) == bool(want_ok)
+        assert sorted(out) == sorted(want)
+        for k in want:
+            assert_same(out[k], want[k], k)
+    for (out, ok), name in zip(outs[:3], ("l2", "deposit", "l2")):
+        assert bool(ok), name
+        want = oracle_outputs(bbs[name])
+        got = engine.unpack_outputs(out)
+        assert {k: got[k] for k in want} == want, name
+    assert not bool(outs[3][1])
+    assert outs[0][0]["hash_global_inputs"].data_ptr() != \
+        outs[2][0]["hash_global_inputs"].data_ptr()
+    assert_same(outs[0][0], outs[2][0])
+
+
+def test_captured_call_refuses_other_shapes(cuda):
+    engine = RollupEngine(*SUITE_CONFIG, device=cuda)
+    packed = engine.pack(suite_batches()["l2"].get_input())
+    engine.compile()
+    with pytest.raises(ValueError, match="captured for"):
+        engine.run_packed(dict(packed, s=packed["s"][:, :2]))
+    with pytest.raises(ValueError, match="captured for"):
+        engine.run_packed(dict(packed, s=packed["s"].cpu()))
+
+
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_captured_withdraw_equals_eager_and_builder(cuda, lanes):
+    """Withdraw's graph at 1 and 33 lanes (one graph a width): hashes and
+    verdicts equal the eager route's and the builder's, exactly the
+    tampered lanes refused, A/B/A replays exact."""
+    n_levels = 16
+    rng = random.Random(100 + lanes)
+    good = withdraw_cases.exit_tree_batch(rng, max(lanes, 2), n_levels)
+    good = good[:lanes]
+    bad = list(good)
+    tampered = sorted(rng.sample(range(lanes), min(lanes, 4)))
+    for j, lane in enumerate(tampered):
+        bad[lane] = withdraw_cases.tamper(good[lane], withdraw_cases.TAMPERS[j],
+                                          n_levels)
+    engine = WithdrawEngine(n_levels, device=cuda)
+    graph = engine.compile(lanes)
+    kernels.reset_launches()
+    runs = [engine.run(b) for b in (good, bad, good)]
+    assert kernels.launches == {k: 3 * n for k, n in graph.counts.items()}
+    assert graph.counts["poseidon_permute"] == 3 + n_levels + 1
+    for (hashes, ok), batch in zip(runs, (good, bad, good)):
+        assert hashes == [hash_inputs_withdraw(d) for d in batch]
+        h, k = engine.run_packed_eager(engine.pack(batch))
+        assert hashes == [int(v) for v in fr.unpack_np(h)]
+        assert ok.tolist() == fr.to_numpy(k).tolist()
+    assert runs[0][1].all() and runs[2][1].all()
+    assert np.flatnonzero(~runs[1][1]).tolist() == tampered
+    assert runs[0][0] == runs[2][0]

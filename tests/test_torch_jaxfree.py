@@ -5,8 +5,9 @@ can be imported (the card's machine has no JAX). A subprocess blocks every
 port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
 outputs against the builder, reads its signals (`trace`), exports its
 witness vector and checks it with the port's pure-Python checker, runs a
-batch of withdrawals through `WithdrawEngine` against the builder, runs both
-plain versions of the full-round experiment against its bigint mirror, and
+batch of withdrawals through `WithdrawEngine` against the builder and
+through a `CapturedCall` of the compiled engines' module (`engine/aot.py`,
+whose input shapes it also holds), runs both plain versions of the full-round experiment against its bigint mirror, and
 runs the 8-bit-limb Poseidon against K1's plain version, imports the CLI,
 runs the sharded path in a world of one (gloo, in process) against the
 builder, imports the two-process worker, and checks that neither `jax` nor
@@ -47,7 +48,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
     import random
 
     from circuits_tpu_torch.builder.withdraw_utils import hash_inputs_withdraw
-    from circuits_tpu_torch.engine import witness_vector
+    from circuits_tpu_torch.engine import aot, witness_vector
     from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
     from circuits_tpu_torch.field import fr
     from circuits_tpu_torch.r1cs.checker import check_batch
@@ -87,6 +88,15 @@ SCRIPT = BLOCK + textwrap.dedent("""
     hashes, ok = WithdrawEngine(8, device="cpu").run(lanes)
     assert ok.tolist() == [True] * 5 + [False]
     assert hashes == [hash_inputs_withdraw(d) for d in lanes]
+    assert {k: (tuple(v.shape), v.dtype) for k, v in
+            engine.pack(inp).items()} == aot.rollup_input_shapes(*SUITE_CONFIG)
+    wengine = WithdrawEngine(8, device="cpu")
+    call = aot.CapturedCall(wengine.run_packed_eager,
+                            aot.withdraw_input_shapes(8, len(lanes)), "cpu")
+    call.capture()
+    h, ok = call(wengine.pack(lanes))
+    assert [int(v) for v in fr.unpack_np(h)] == hashes
+    assert ok.tolist() == [True] * 5 + [False]
     state, vals = exp_mxu_inkernel.random_state(6)
     vpu = poseidon_rounds.full_rounds_vpu_plain(state, 2)
     assert bool((vpu == poseidon_rounds.full_rounds_mxu_plain(state, 2)).all())
