@@ -24,11 +24,14 @@ Phases (any failure raises, and the exit code is then non-zero):
     the time of one lane's own chain of dependent products;
  4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
-    token), capture the engine as a CUDA graph (`RollupEngine.compile`,
-    engine/aot.py: timed, its node count and memory kept for phase 13),
-    run `RollupEngine(...).run` on the card (a replay), hold the hash, roots
-    and newLastIdx exactly against the builder, and require that every
-    kernel of that path (kernels.MAIN_PATH) was launched during that run;
+    token), run `RollupEngine(...).run` on the card (the engine's first
+    batch, op by op), hold the hash, roots and newLastIdx exactly against
+    the builder, and require that every kernel of that path
+    (kernels.MAIN_PATH) was launched during that run; then the second
+    batch, which captures the engine as a CUDA graph (engine/aot.py: timed,
+    its node count and memory kept for phase 13) and replays it: the
+    graph's kernel nodes, read from the graph by the kernels' handles,
+    must be the first run's launches, and a replay must call no wrapper;
     then record the arguments of that path's K1 and K2 calls in one more
     run on the eager route (`run_packed_eager`: a replay calls no Python
     wrapper), and check and time K2 on the batch's own 4096-lane call,
@@ -49,9 +52,12 @@ Phases (any failure raises, and the exit code is then non-zero):
     the seed (scripts/withdraw_cases.py): every ok True and every hash
     exact against the builder's `hash_inputs_withdraw`; a second run with
     known lanes tampered (balance, sibling, idx, idx past 2^nLevels) refuses
-    exactly those; K1 and K4 launched (K4 once, above its narrow route's
-    lane limit, so on its wide route) and K2, K3 not; the same on one lane
-    (K4's narrow route), each width its own captured graph; the path's K1
+    exactly those (the width's first batch runs op by op, the second
+    captures the graph and replays it); K1 and K4 launched (K4 once, above
+    its narrow route's lane limit, so on its wide route) and K2, K3 not,
+    by the wrappers' counts and by the graph's kernel nodes alike; the
+    same on one lane (K4's narrow route) over five batches, each width its
+    own captured graph in the engine's one memory pool; the path's K1
     and K4 calls recorded on the eager route; `run_packed` timed (median of
     5, each ending in a host copy of the hashes), and its layers (state
     hash, verifier, hash) each on their own;
@@ -96,7 +102,8 @@ Phases (any failure raises, and the exit code is then non-zero):
     the capture's seconds, its node count (`cuGraphGetNodes`) and memory,
     `torch.cuda.max_memory_allocated` of each route, and both routes'
     `run_packed` medians of 5 for RollupMain and Withdraw, every run
-    printed.
+    printed; what the one-lane Withdraw graph added to the engine's shared
+    pool.
 
 Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
@@ -106,7 +113,8 @@ rounds (3 dependent operations a round) over the card's clock. No PyTorch call c
 functions, so `library_ms` is null in every row.
 
 The line before the last is {"kernels": [...]} (each row also with the
-kernel's launches in one Withdraw batch and in phase 12's world of one);
+kernel nodes of phase 4's graph, of the 32768-lane Withdraw graph, and its
+launches in phase 12's world of one);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -746,6 +754,14 @@ def median_s(fn, reps: int = 5) -> float:
     return statistics.median(plain_ms(fn) for _ in range(reps)) * 1e-3
 
 
+def kept_memory() -> int:
+    """Bytes the caching allocator keeps reserved once its free blocks are
+    returned: live tensors and the captured graphs' pools."""
+    sync()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
 def check_withdraw(rng, card):
     """Phase 8: Withdraw(nLevels = 32) through `WithdrawEngine` on the card
     at 32768 lanes and at one. Returns (the engine, the valid lanes, the
@@ -764,13 +780,18 @@ def check_withdraw(rng, card):
     assert 1 <= edge < WITHDRAW_LANES, edge
 
     def run_counted(batch):
-        engine.compile(len(batch))  # its warm-up runs launch for real
+        """`engine.run(batch)` and the kernels it ran: the wrappers' own
+        launches (a width's first batch runs op by op) and, for each replay
+        of the width's graph, the graph's kernel nodes."""
+        call = engine.call_for(len(batch))
+        replays = call.replays
         kernels.reset_launches()
         hashes, ok = engine.run(batch)
         sync()
         assert isinstance(ok, np.ndarray) and ok.dtype == np.bool_
         assert ok.shape == (len(batch),) and len(hashes) == len(batch)
-        counts = dict(kernels.launches)
+        counts = {k: n + (call.replays - replays) * call.counts[k]
+                  for k, n in kernels.launches.items()}
         assert counts["poseidon_permute"] > 0, counts
         assert counts["sha256_chain"] == 1, counts
         assert counts["smt_chain"] == 0 and counts["eddsa_check"] == 0, counts
@@ -786,7 +807,11 @@ def check_withdraw(rng, card):
     for j, lane in enumerate(sorted(rng.sample(range(WITHDRAW_LANES), 64))):
         kinds[lane] = withdraw_cases.TAMPERS[j % len(withdraw_cases.TAMPERS)]
         bad[lane] = withdraw_cases.tamper(lanes[lane], kinds[lane], N_LEVELS)
-    hashes_bad, ok_bad, _ = run_counted(bad)
+    reserved = kept_memory()
+    hashes_bad, ok_bad, launches_bad = run_counted(bad)
+    wide_kept = kept_memory() - reserved
+    graph = engine.calls[WITHDRAW_LANES]
+    assert graph.replays == 1 and graph.counts == launches == launches_bad
     assert np.flatnonzero(~ok_bad).tolist() == sorted(kinds), \
         "the refused lanes are not the tampered ones"
     assert hashes_bad == [hash_inputs_withdraw(d) for d in bad]
@@ -794,19 +819,30 @@ def check_withdraw(rng, card):
           f"{torch.cuda.get_device_name(0)}: every ok True, every hash EXACT "
           f"vs builder; {len(kinds)} tampered lanes "
           f"({', '.join(withdraw_cases.TAMPERS)}) and only those refused; "
-          f"launches={launches}; sha256_chain's narrow route ends at {edge} "
-          "lanes, so this was its wide route", flush=True)
+          f"launches={launches} (op by op) and {launches_bad} (the graph's "
+          f"kernel nodes, {graph.nodes} nodes, captured in "
+          f"{sum(graph.seconds.values()):.3f} s, its pool and static inputs "
+          f"{wide_kept / 2**20:.1f} MiB); sha256_chain's narrow route "
+          f"ends at {edge} lanes, so this was its wide route", flush=True)
 
     # one lane, the reference circuit's own shape: K4's narrow route
+    reserved, each = kept_memory(), []
     for kind in (None,) + withdraw_cases.TAMPERS:
         one = lanes[7] if kind is None else \
             withdraw_cases.tamper(lanes[7], kind, N_LEVELS)
         h1, ok1, launches1 = run_counted([one])
         assert h1 == [hash_inputs_withdraw(one)], kind
         assert bool(ok1[0]) == (kind is None), kind
+        each.append(launches1)
+    grown = kept_memory() - reserved
+    assert engine.calls[1].replays == len(withdraw_cases.TAMPERS)
+    assert all(c == launches1 for c in each), each
     print(f"Withdraw({N_LEVELS}) x 1 lane (sha256_chain's narrow route): ok "
-          f"and hash EXACT vs builder, each tamper refused; "
-          f"launches={launches1}", flush=True)
+          f"and hash EXACT vs builder, each tamper refused, the first op by "
+          f"op, the second captured, the rest replays; launches={launches1} "
+          f"a batch; its graph ({engine.calls[1].nodes} nodes) in the pool "
+          f"of the {WITHDRAW_LANES}-lane one: reserved memory grew "
+          f"{grown / 2**20:.1f} MiB with it", flush=True)
 
     # the path's K1 and K4 calls, then its times
     t0 = time.perf_counter()
@@ -884,7 +920,7 @@ def check_withdraw(rng, card):
           f"lane, {hashes_k2} hashes selected, half of them the new chain's "
           f"that nobody reads; kernel={ms:.4f} ms bound={bound_ms:.4f} ms "
           f"({by})", flush=True)
-    return engine, lanes, launches, packed
+    return engine, lanes, graph.counts, packed
 
 
 def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
@@ -1203,28 +1239,41 @@ def check_sharded(engine, packed, bb, bad, card):
     return launches
 
 
-def capture_engine(engine):
-    """Phase 4's capture of RollupMain: `engine.compile()` timed, with the
-    most memory it held at once and what stays reserved after it (the
-    graph's private pool and its static inputs; the caching allocator's
-    free blocks are returned before and after)."""
-    sync()
-    torch.cuda.empty_cache()
+def capture_engine(engine, packed, launches, bb):
+    """Phase 4's capture of RollupMain: the engine's second batch, which
+    captures the graph and replays it, timed, with the most memory it held
+    at once and what stays reserved after it (the graph's private pool; the
+    caching allocator's free blocks are returned before and after). The
+    graph's kernel nodes, read from the graph, must be `launches`, the
+    first batch's; the capture's wrapper calls and a replay add nothing to
+    `kernels.launches`."""
+    call = engine.call
+    assert call.warm and call.outputs is None
+    reserved = kept_memory()
     torch.cuda.reset_peak_memory_stats()
-    reserved = torch.cuda.memory_reserved()
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    graph = engine.compile()
+    out, ok = engine.run_packed(packed)
     sync()
     seconds = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    stats = dict(seconds=seconds, steps=graph.seconds,
-                 nodes=graph.node_count(), counts=graph.counts,
-                 peak=torch.cuda.max_memory_allocated(),
-                 pool=torch.cuda.memory_reserved() - reserved)
+    stats = dict(seconds=seconds, steps=call.seconds, nodes=call.nodes,
+                 counts=call.counts, peak=torch.cuda.max_memory_allocated(),
+                 pool=kept_memory() - reserved)
+    assert not any(kernels.launches.values()), kernels.launches
+    assert call.counts == launches, (call.counts, launches)
+    again, ok_again = engine.run_packed(packed)
+    sync()
+    assert call.replays == 2 and not any(kernels.launches.values())
+    assert bool(ok) and bool(ok_again)
+    for k in out:
+        assert torch.equal(out[k], again[k]), k
+    assert fr.unpack_int(out["hash_global_inputs"]) == bb.get_hash_inputs()
     print(f"captured RollupMain{engine.params} as a CUDA graph of "
-          f"{stats['nodes']} nodes in {stats['seconds']:.3f} s ("
-          + ", ".join(f"{k} {v:.3f} s" for k, v in graph.seconds.items())
-          + f"); launches a replay {graph.counts}", flush=True)
+          f"{stats['nodes']} nodes at its second batch, {seconds:.3f} s with "
+          "that batch's replay ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in call.seconds.items())
+          + f"); its kernel nodes {call.counts}, the first batch's launches; "
+          "a replay called no wrapper", flush=True)
     return stats
 
 
@@ -1350,7 +1399,7 @@ def check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
           f"only those refused through the graph; capture "
           f"{sum(wgraph.seconds.values()):.3f} s ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in wgraph.seconds.items())
-          + f"), {wgraph.node_count()} nodes; run_packed median graph "
+          + f"), {wgraph.nodes} nodes; run_packed median graph "
           f"{statistics.median(wgraph_t):.4f} s "
           f"{['%.4f' % t for t in wgraph_t]} "
           f"({lanes / statistics.median(wgraph_t):.1f} withdrawals/s, "
@@ -1491,11 +1540,10 @@ def main() -> None:
     packed = engine.pack(inp)
     sync()
     t_pack = time.perf_counter() - t0
-    captured = capture_engine(engine)
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out, ok = engine.run(inp)
+    out, ok = engine.run(inp)  # the engine's first batch: op by op
     sync()
     t_first = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -1511,6 +1559,7 @@ def main() -> None:
     for name in kernels.MAIN_PATH:
         assert launches[name] > 0, \
             f"kernel {name} was not launched by the main path"
+    captured = capture_engine(engine, packed, launches, bb)
     check_main_path_calls(dev, engine, packed)
 
     # 5 - a tampered signature scalar flips the verdict
@@ -1584,6 +1633,7 @@ def main() -> None:
         r = results[name]
         rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches[name],
+                         graph_launches=captured["counts"][name],
                          withdraw_launches=wlaunches[name],
                          sharded_launches=slaunches[name],
                          max_abs_err=r["err"], ms=r["ms"],

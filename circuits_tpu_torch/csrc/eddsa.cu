@@ -79,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "funcs.cuh"
 #include "poseidon.cuh"
 
 using namespace ctpu;
@@ -373,4 +374,10 @@ extern "C" int ctpu_eddsa_check(const int64_t* ax_m, const int64_t* ay_m,
   eddsa_kernel<<<grid, K3_THREADS, 0, (cudaStream_t)stream>>>(
       ax_m, ay_m, s, r8x_m, r8y_m, hm, comb, ok, B);
   return (int)cudaGetLastError();
+}
+
+// The handles of this file's kernels (funcs.cuh).
+extern "C" int ctpu_eddsa_funcs(void** out) {
+  const void* k[] = {(const void*)eddsa_kernel};
+  return kernel_funcs(k, 1, out);
 }

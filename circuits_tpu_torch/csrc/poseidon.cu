@@ -30,6 +30,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "funcs.cuh"
 #include "poseidon.cuh"
 
 using namespace ctpu;
@@ -82,4 +83,11 @@ extern "C" int ctpu_poseidon_permute(const int64_t* in, int64_t* out,
     poseidon_permute_kernel<8><<<grid, K1_THREADS, 0, st>>>(in, out, block, t, B);
   }
   return (int)cudaGetLastError();
+}
+
+// The handles of this file's kernels (funcs.cuh).
+extern "C" int ctpu_poseidon_funcs(void** out) {
+  const void* k[] = {(const void*)poseidon_permute_kernel<4>,
+                     (const void*)poseidon_permute_kernel<8>};
+  return kernel_funcs(k, 2, out);
 }

@@ -50,6 +50,7 @@
 #include <stdint.h>
 
 #include "field.cuh"
+#include "funcs.cuh"
 
 using namespace ctpu;
 
@@ -358,4 +359,11 @@ extern "C" int ctpu_rounds_mxu(const int64_t* in, int64_t* out, const uint32_t* 
   rounds_mxu_kernel<<<grid, MX_THREADS, MX_SMEM, (cudaStream_t)stream>>>(
       in, out, reinterpret_cast<const uint2*>(wfrag), rounds, B);
   return (int)cudaGetLastError();
+}
+
+// The handles of this file's kernels (funcs.cuh).
+extern "C" int ctpu_rounds_funcs(void** out) {
+  const void* k[] = {(const void*)rounds_vpu_kernel,
+                     (const void*)rounds_mxu_kernel};
+  return kernel_funcs(k, 2, out);
 }

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "funcs.cuh"
+
 __constant__ uint32_t SHA_K[64] = {
     0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u, 0x3956c25bu, 0x59f111f1u,
     0x923f82a4u, 0xab1c5ed5u, 0xd807aa98u, 0x12835b01u, 0x243185beu, 0x550c7dc3u,
@@ -330,4 +332,11 @@ extern "C" int ctpu_sha256_chain(const int64_t* words, int64_t* out, int nblocks
     sha256_chain_wide_kernel<<<grid, WIDE_THREADS, 0, st>>>(words, out, nblocks, B);
   }
   return (int)cudaGetLastError();
+}
+
+// The handles of this file's kernels (funcs.cuh).
+extern "C" int ctpu_sha256_funcs(void** out) {
+  const void* k[] = {(const void*)sha256_chain_narrow_kernel,
+                     (const void*)sha256_chain_wide_kernel};
+  return ctpu::kernel_funcs(k, 2, out);
 }

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "funcs.cuh"
 #include "poseidon.cuh"
 
 using namespace ctpu;
@@ -109,4 +110,10 @@ extern "C" int ctpu_smt_chain(const int64_t* sib, const uint8_t* bits,
   smt_chain_kernel<<<grid, K2_THREADS, 0, (cudaStream_t)stream>>>(
       sib, bits, masks, old1, new1, new1h, out, tab + 8 * sparse_offset(3), n, B);
   return (int)cudaGetLastError();
+}
+
+// The handles of this file's kernels (funcs.cuh).
+extern "C" int ctpu_smt_funcs(void** out) {
+  const void* k[] = {(const void*)smt_chain_kernel};
+  return kernel_funcs(k, 1, out);
 }

@@ -7,17 +7,18 @@ package's `RollupEngine` and `WithdrawEngine` hold
 traced from the shapes of its packed input, compiled once into one program
 and run for each batch. Here the engine's eager path -- the plain PyTorch
 field operations and the kernels K1-K4 of `csrc/` -- is recorded once by
-`torch.cuda.graph` on static input buffers allocated from the same shapes
+`torch.cuda.graph` on static input buffers of the same shapes
 (`rollup_input_shapes`, `withdraw_input_shapes`). Each batch is copied into
 those buffers and the graph is replayed: the same kernels with the same
 arguments, launched from the graph in one call instead of op by op from
 Python. The arithmetic is the eager path's own.
 
-`CapturedCall` follows PyTorch's recipe: eager runs on a side stream on
-zero inputs first, which build the kernel library, put its constants on
-the device and fill every cached table and constant, then one captured
-call. Zero inputs are as good as any: nothing on either path reads a value
-back to the host or branches on one, and nothing copies from the host
+`CapturedCall` follows PyTorch's recipe: an eager run first, which builds
+the kernel library, puts its constants on the device and fills every
+cached table and constant, then one captured call. The eager run is the
+caller's first batch (or, for a capture made ahead, one run on zero
+inputs). Any batch serves: nothing on either path reads a value back to
+the host or branches on one, and nothing copies from the host
 (`tests/test_torch_aot.py` holds this on the CPU, op by op).
 
 Divergence: the JAX module's `export_rollup_main` / `load_rollup_main`
@@ -37,8 +38,8 @@ from .. import kernels
 from ..field.fr import N_LIMBS
 
 _I64 = torch.int64
-# eager runs on zero inputs before the capture
-WARMUP_RUNS = 2
+# cuGraphNodeGetType's CU_GRAPH_NODE_TYPE_KERNEL
+_KERNEL_NODE = 0
 
 
 def rollup_input_shapes(n_tx: int, n_levels: int, max_l1_tx: int,
@@ -118,38 +119,111 @@ def _copy_into(dst, src) -> None:
         dst.copy_(src)
 
 
+def graph_pool(device):
+    """A memory pool that the graphs captured on `device` may share when
+    they never replay at the same time (None on the CPU)."""
+    device = torch.device(device)
+    return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+
+def _libcuda() -> ctypes.CDLL:
+    cu = ctypes.CDLL("libcuda.so.1")
+    P, PP = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+    for name, argtypes in (
+            ("cuGraphGetNodes", [P, P, ctypes.POINTER(ctypes.c_size_t)]),
+            ("cuGraphNodeGetType", [P, ctypes.POINTER(ctypes.c_int)]),
+            ("cuGraphKernelNodeGetParams_v2", [P, PP])):
+        fn = getattr(cu, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return cu
+
+
+def graph_kernels(graph: torch.cuda.CUDAGraph, device) -> tuple[int, dict]:
+    """(nodes, {launches key: kernel nodes}) of a captured graph, read from
+    the graph: each kernel node whose function is one of the kernel
+    library's (`kernels.functions`); the other nodes are PyTorch's own
+    kernels and copies."""
+    handles = kernels.functions(torch.device(device))
+    cu = _libcuda()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    kernels.check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    kernels.check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)),
+                  "cuGraphGetNodes")
+    counts = {k: 0 for k in kernels.launches}
+    kind = ctypes.c_int()
+    # CUDA_KERNEL_NODE_PARAMS_v2 (72 bytes), the function first
+    params = (ctypes.c_void_p * 16)()
+    for node in nodes:
+        kernels.check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+                      "cuGraphNodeGetType")
+        if kind.value != _KERNEL_NODE:
+            continue
+        kernels.check(cu.cuGraphKernelNodeGetParams_v2(node, params),
+                      "cuGraphKernelNodeGetParams")
+        name = handles.get(params[0])
+        if name is not None:
+            counts[name] += 1
+    return n.value, counts
+
+
 class CapturedCall:
-    """`fn(inputs)` on static input buffers of fixed shapes, captured once
-    and replayed for each call.
+    """`fn(inputs)` on static input buffers of fixed shapes: run op by op at
+    its first call, captured at its second, replayed from then on.
 
     `fn` takes a dict of tensors and returns a tree (dicts, tuples) of
-    tensors. `capture()` on a CUDA device runs `fn` WARMUP_RUNS times on a
-    side stream on zero inputs, then records one call as a CUDA graph in a
-    private memory pool; the kernel wrappers' launches during the capture
-    are taken out of `kernels.launches` and kept in `counts`, and each
-    replay adds them back, so the counts go on saying what ran. Calling the
-    object copies a packed dict into the static inputs (shapes, dtypes and
-    device must be those captured, else ValueError), replays, and returns
-    clones of the static outputs: two batches never share memory.
+    tensors. Each call copies a packed dict into the static inputs (shapes,
+    dtypes and device must be those given, else ValueError). The first call
+    runs `fn` on them eagerly -- the warm-up a capture needs, on the
+    caller's own batch -- and returns its outputs. The second call captures
+    and replays, later ones replay; a replay returns clones of the static
+    outputs, so two batches never share memory. `capture()` made before
+    any call (an engine's `compile()`) first warms up on zero inputs on a
+    side stream.
 
-    On the CPU there is no graph: the replay step is a plain call of `fn`
-    on the static inputs, copied into the static outputs -- the same
-    bookkeeping, which is how the tests hold it.
+    On a CUDA device the capture records one call as a CUDA graph, in
+    `pool` (see `graph_pool`) or else a private pool. A kernel wrapper that
+    is called while the graph is recorded runs nothing: its count is taken
+    back out of `kernels.launches`, and a replay adds nothing to it.
+    `counts` is read from the graph (`graph_kernels`): its kernel nodes by
+    kernel, which must equal the wrappers' calls during the recording, else
+    RuntimeError. A replay runs `counts`; `replays` counts the replays.
+
+    On the CPU there is no graph: the capture's call is a plain call of `fn`
+    on the batch, whose outputs become the static outputs, and a replay a
+    plain call copied into them -- the bookkeeping of the card.
     """
 
-    def __init__(self, fn, shapes: dict, device):
+    def __init__(self, fn, shapes: dict, device, pool=None):
         self.fn = fn
+        self.shapes = shapes
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"CapturedCall: unsupported device {device}")
-        self.inputs = {k: torch.zeros(s, dtype=d, device=self.device)
-                       for k, (s, d) in shapes.items()}
+        if self.device.type == "cuda" and self.device.index is None:
+            # as a tensor on "cuda" names its device
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.pool = pool
+        self._inputs = None
+        self.warm = False  # `fn` has run on these buffers
         self.graph = None
         self.outputs = None
         self.counts = {k: 0 for k in kernels.launches}
-        # host seconds of the warm-up runs, the capture and the
-        # instantiation of the graph
+        self.nodes = 0
+        self.replays = 0
+        # host seconds of the warm-up (when the capture made it), the
+        # recording, the instantiation and the count of the graph's nodes
         self.seconds = {}
+
+    @property
+    def inputs(self) -> dict:
+        """The static input buffers (allocated at first use, zero)."""
+        if self._inputs is None:
+            self._inputs = {k: torch.zeros(s, dtype=d, device=self.device)
+                            for k, (s, d) in self.shapes.items()}
+        return self._inputs
 
     def capture(self) -> None:
         """Record `fn` at these shapes (once)."""
@@ -157,49 +231,60 @@ class CapturedCall:
             raise RuntimeError("CapturedCall: already captured")
         if self.device.type == "cpu":
             self.outputs = _tree_map(torch.clone, self.fn(self.inputs))
+            self.warm = True
             return
-        dev = self.device
+        dev, warm_up = self.device, not self.warm
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_RUNS):
+        if warm_up:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
                 self.fn(self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.warm = True
         torch.cuda.synchronize(dev)
         t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(kernels.launches)
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(graph):
+            with torch.cuda.device(dev), \
+                    torch.cuda.graph(graph, pool=self.pool):
                 outputs = self.fn(self.inputs)
         finally:
-            counts = {k: kernels.launches[k] - before[k] for k in before}
+            called = {k: kernels.launches[k] - before[k] for k in before}
             kernels.launches.update(before)
         t2 = time.perf_counter()
         graph.instantiate()
         torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
-        self.graph, self.outputs, self.counts = graph, outputs, counts
-        self.seconds = {"warmup": t1 - t0, "capture": t2 - t1,
-                        "instantiate": t3 - t2}
+        nodes, counts = graph_kernels(graph, dev)
+        if counts != called:
+            raise RuntimeError(
+                f"CapturedCall: the graph holds the kernel nodes {counts}, "
+                f"but the wrappers launched {called} while it was recorded")
+        self.graph, self.outputs = graph, outputs
+        self.nodes, self.counts = nodes, counts
+        self.seconds = {"warmup": t1 - t0} if warm_up else {}
+        self.seconds.update(capture=t2 - t1, instantiate=t3 - t2,
+                            count=time.perf_counter() - t3)
 
     def load(self, packed: dict) -> None:
         """Copy `packed` into the static inputs."""
-        if packed.keys() != self.inputs.keys():
+        if packed.keys() != self.shapes.keys():
             raise ValueError(
                 "CapturedCall: inputs differ from the captured ones: missing "
-                f"{sorted(self.inputs.keys() - packed.keys())}, extra "
-                f"{sorted(packed.keys() - self.inputs.keys())}")
-        for k, buf in self.inputs.items():
+                f"{sorted(self.shapes.keys() - packed.keys())}, extra "
+                f"{sorted(packed.keys() - self.shapes.keys())}")
+        for k, (shape, dtype) in self.shapes.items():
             v = packed[k]
-            if (v.shape, v.dtype, v.device) != (buf.shape, buf.dtype,
-                                                buf.device):
+            if (tuple(v.shape), v.dtype, v.device) != (tuple(shape), dtype,
+                                                       self.device):
                 raise ValueError(
                     f"CapturedCall: {k} is {tuple(v.shape)} {v.dtype} on "
-                    f"{v.device}; captured for {tuple(buf.shape)} "
-                    f"{buf.dtype} on {buf.device}")
-            buf.copy_(v)
+                    f"{v.device}; captured for {tuple(shape)} {dtype} on "
+                    f"{self.device}")
+        for k, buf in self.inputs.items():
+            buf.copy_(packed[k])
 
     def replay(self) -> None:
         """Run the captured call on the static inputs."""
@@ -207,26 +292,19 @@ class CapturedCall:
             raise RuntimeError("CapturedCall: replay before capture")
         if self.graph is None:
             _copy_into(self.outputs, self.fn(self.inputs))
-            return
-        self.graph.replay()
-        for k, n in self.counts.items():
-            kernels.launches[k] += n
+        else:
+            self.graph.replay()
+        self.replays += 1
 
     def __call__(self, packed: dict):
         self.load(packed)
+        if not self.warm:
+            out = self.fn(self.inputs)
+            self.warm = True
+            return _tree_map(torch.clone, out)
+        if self.outputs is None:
+            self.capture()
+            if self.graph is None:  # the CPU's capture ran this batch
+                return _tree_map(torch.clone, self.outputs)
         self.replay()
         return _tree_map(torch.clone, self.outputs)
-
-    def node_count(self) -> int:
-        """Nodes of the captured graph (`cuGraphGetNodes` of libcuda)."""
-        if self.graph is None:
-            raise RuntimeError("CapturedCall: no CUDA graph")
-        cu = ctypes.CDLL("libcuda.so.1")
-        cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.POINTER(ctypes.c_size_t)]
-        cu.cuGraphGetNodes.restype = ctypes.c_int
-        n = ctypes.c_size_t(0)
-        kernels.check(cu.cuGraphGetNodes(
-            ctypes.c_void_p(self.graph.raw_cuda_graph()), None,
-            ctypes.byref(n)), "cuGraphGetNodes")
-        return n.value

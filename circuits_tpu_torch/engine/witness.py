@@ -11,14 +11,16 @@ where there is no card; they never carry on on the CPU by themselves. A
 caller who passes `device="cpu"` (the tests) gets the plain PyTorch
 versions.
 
-On the card an engine's `run_packed` replays its circuit captured as a CUDA
-graph (`engine/aot.py`), the counterpart of the JAX engines' `jax.jit`:
-captured by `compile()` or at the first `run_packed`, once per input shape.
-A capture or replay that fails raises; nothing falls back to the eager
-path. `run_packed_eager` runs the circuit op by op, for debugging and for
+An engine's `run_packed` goes through its `CapturedCall` (`engine/aot.py`),
+the counterpart of the JAX engines' `jax.jit`, once per input shape: the
+first batch of a shape runs op by op, the second captures the circuit as a
+CUDA graph and replays it, later batches replay it (`compile()` captures
+ahead instead). A capture or replay that fails raises; nothing falls back
+to the eager path. On the CPU the same bookkeeping runs the plain calls.
+`run_packed_eager` runs the circuit op by op, for debugging and for
 callers that watch the Python kernel wrappers, which a replay never calls.
-On the CPU `run_packed` is the eager path. The debug paths (`trace`,
-`_full_debug`, `run_debug`) are eager on every device.
+The debug paths (`trace`, `_full_debug`, `run_debug`) are eager on every
+device.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 
 from ..field import fr
-from .aot import CapturedCall, rollup_input_shapes, withdraw_input_shapes
+from .aot import (CapturedCall, graph_pool, rollup_input_shapes,
+                  withdraw_input_shapes)
 from ..models.rollup_main import (build_chains, global_tail, rollup_main,
                                   rollup_main_lanes)
 from ..models.withdraw import withdraw
@@ -150,28 +153,25 @@ class RollupEngine:
                  device="cuda"):
         self.params = (n_tx, n_levels, max_l1_tx, max_fee_tx)
         self.device = resolve_device(device)
-        # the compiled circuit: on the card the CapturedCall that
-        # `compile()` makes, on the CPU the eager function
-        self._fn = None if self.device.type == "cuda" else \
-            self.run_packed_eager
+        # the compiled circuit
+        self.call = CapturedCall(self.run_packed_eager,
+                                 rollup_input_shapes(*self.params),
+                                 self.device)
 
     def pack(self, inp: dict) -> dict:
         return pack_rollup_inputs(inp, *self.params, device=self.device)
 
-    def compile(self):
-        """Capture RollupMain at this engine's shapes (on the card, once)
-        and return the compiled call."""
-        if self._fn is None:
-            fn = CapturedCall(self.run_packed_eager,
-                              rollup_input_shapes(*self.params), self.device)
-            fn.capture()
-            self._fn = fn
-        return self._fn
+    def compile(self) -> CapturedCall:
+        """Capture RollupMain at this engine's shapes now (once), not at the
+        second `run_packed`, and return the compiled call."""
+        if self.call.outputs is None:
+            self.call.capture()
+        return self.call
 
     def run_packed(self, packed: dict):
         """Packed tensors -> (outputs dict of tensors, ok 0-d tensor),
         through the compiled circuit."""
-        return self.compile()(packed)
+        return self.call(packed)
 
     def run_packed_eager(self, packed: dict):
         """`run_packed` op by op: every kernel wrapper called from Python."""
@@ -349,30 +349,37 @@ class WithdrawEngine:
     def __init__(self, n_levels, device="cuda"):
         self.n_levels = n_levels
         self.device = resolve_device(device)
-        # lanes -> the compiled circuit at that batch width (on the card)
-        self._fns: dict[int, CapturedCall] = {}
+        # lanes -> the compiled circuit at that batch width; all of them
+        # capture into one memory pool, since they never replay at once
+        self.calls: dict[int, CapturedCall] = {}
+        self._pool = graph_pool(self.device)
 
     def pack(self, inputs: list[dict]) -> dict:
         return pack_withdraw_inputs(inputs, self.n_levels, self.device)
 
-    def compile(self, lanes: int):
-        """Capture Withdraw at `lanes` withdrawals (on the card, once per
-        width) and return the compiled call; on the CPU the eager
-        function."""
-        if self.device.type != "cuda":
-            return self.run_packed_eager
-        if lanes not in self._fns:
-            fn = CapturedCall(self.run_packed_eager,
-                              withdraw_input_shapes(self.n_levels, lanes),
-                              self.device)
-            fn.capture()
-            self._fns[lanes] = fn
-        return self._fns[lanes]
+    def call_for(self, lanes: int) -> CapturedCall:
+        """The compiled circuit of `lanes` withdrawals (made at first use,
+        not yet captured)."""
+        if lanes not in self.calls:
+            self.calls[lanes] = CapturedCall(
+                self.run_packed_eager,
+                withdraw_input_shapes(self.n_levels, lanes), self.device,
+                pool=self._pool)
+        return self.calls[lanes]
+
+    def compile(self, lanes: int) -> CapturedCall:
+        """Capture Withdraw at `lanes` withdrawals now (once per width), not
+        at the second `run_packed` of that width, and return the compiled
+        call."""
+        call = self.call_for(lanes)
+        if call.outputs is None:
+            call.capture()
+        return call
 
     def run_packed(self, packed: dict):
         """Packed tensors -> (hash (16, B), ok (B,) bool) tensors, through
         the compiled circuit of B lanes."""
-        return self.compile(packed["root_exit"].shape[-1])(packed)
+        return self.call_for(packed["root_exit"].shape[-1])(packed)
 
     def run_packed_eager(self, packed: dict, debug: bool = False):
         """`run_packed` op by op; with `debug` a third intermediates

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("poseidon.cu", "smt.cu", "eddsa.cu", "sha256.cu",
            "poseidon_rounds.cu", "mont_rate.cu")
-HEADERS = ("field.cuh", "poseidon.cuh")
+HEADERS = ("field.cuh", "poseidon.cuh", "funcs.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> launches made by its wrapper; reset with reset_launches()
@@ -40,9 +40,17 @@ launches = {"poseidon_permute": 0, "smt_chain": 0, "eddsa_check": 0,
 # the kernels that RollupEngine.run launches; the other two belong to the
 # full-round experiment (circuits_tpu_torch/scripts/exp_mxu_inkernel.py)
 MAIN_PATH = ("poseidon_permute", "smt_chain", "eddsa_check", "sha256_chain")
+# C function that reports a source's __global__ functions (csrc/funcs.cuh)
+# -> the launches key of each, in the order it writes their handles
+FUNCS = {"ctpu_poseidon_funcs": ("poseidon_permute", "poseidon_permute"),
+         "ctpu_smt_funcs": ("smt_chain",),
+         "ctpu_eddsa_funcs": ("eddsa_check",),
+         "ctpu_sha256_funcs": ("sha256_chain", "sha256_chain"),
+         "ctpu_rounds_funcs": ("poseidon_rounds_vpu", "poseidon_rounds_mxu")}
 
 _lib = None
 _prepared: dict[int, torch.Tensor] = {}
+_functions: dict[int, dict[int, str]] = {}
 
 
 def reset_launches() -> None:
@@ -129,6 +137,7 @@ def lib() -> ctypes.CDLL:
             "ctpu_rounds_vpu": [P, P, I, L, P],
             "ctpu_rounds_mxu": [P, P, P, I, L, P],
             "ctpu_mont_rate": [P, I, I, I, I, P],
+            **{name: [P] for name in FUNCS},
         }
         for name, argtypes in sigs.items():
             fn = getattr(so, name)
@@ -172,6 +181,24 @@ def poseidon_table(device: torch.device) -> torch.Tensor:
     """`convert.poseidon_kernel_words()` as an int32 tensor (n_elements, 8)
     in `device`'s memory; `prepare(device)` has put it there."""
     return _prepared[_index(device)]
+
+
+def functions(device: torch.device) -> dict[int, str]:
+    """{CUfunction handle of a kernel of the library on `device`:
+    its launches key}, each kernel's handle as the runtime gives it
+    (`cudaGetFuncBySymbol`): what a captured graph's kernel nodes name."""
+    index = _index(device)
+    if index not in _functions:
+        so, found = prepare(device), {}
+        with torch.cuda.device(index):
+            for fn, names in FUNCS.items():
+                out = (ctypes.c_void_p * len(names))()
+                check(getattr(so, fn)(out), fn)
+                found.update({h: name for h, name in zip(out, names)})
+        if None in found or len(found) != sum(map(len, FUNCS.values())):
+            raise RuntimeError(f"kernel handles not distinct: {found}")
+        _functions[index] = found
+    return _functions[index]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -68,6 +68,7 @@ def load_sources(csrc: Path) -> Path:
     hash of the sources."""
     kernels.CSRC, kernels._lib = Path(csrc), None
     kernels._prepared.clear()
+    kernels._functions.clear()
     return kernels.library_path()
 
 

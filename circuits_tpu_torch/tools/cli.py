@@ -127,9 +127,10 @@ def cmd_create(args, device):
 
 def cmd_compile(args, device):
     """Build the kernel library and capture RollupMain as a CUDA graph
-    (nothing to build or capture for the CPU), then one first call of
-    RollupEngine.run on `example_input`, a replay on the card: the time a
-    fresh process takes to its first witness."""
+    ahead (one warm-up on zero inputs, then the capture; nothing to build
+    or capture for the CPU), then one first call of RollupEngine.run on
+    `example_input`, a replay on the card: the time a fresh process that
+    will run many batches takes to its first witness."""
     from .. import kernels
     from ..r1cs.constraints import total_constraints
 
@@ -143,7 +144,7 @@ def cmd_compile(args, device):
         t0 = time.time()
         graph = eng.compile()
         print(f"captured RollupMain({','.join(map(str, params))}) as a CUDA "
-              f"graph of {graph.node_count():,} nodes in "
+              f"graph of {graph.nodes:,} nodes in "
               f"{time.time() - t0:.1f}s (" + ", ".join(
                   f"{k} {v:.1f}s" for k, v in graph.seconds.items()) + ")")
     else:

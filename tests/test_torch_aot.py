@@ -9,10 +9,13 @@ CPU, where there is no CUDA graph:
   capture refuses (a tensor made from host data, a value read back, a shape
   that depends on data). The plain versions of K1-K4 are left out: they run
   only on the CPU, and on the card the kernels take their place;
-- `CapturedCall`'s bookkeeping (copy-in, replay step, cloned outputs) with
-  the replay step as a plain call of the eager function: batches A, B, A and
-  a tampered one, each exactly the JAX package's `RollupEngine._fn` on the
-  same packed inputs;
+- `CapturedCall`'s bookkeeping (copy-in, the first call op by op, the
+  capture at the second, replays, cloned outputs) with the capture and
+  replay steps as plain calls of the eager function: batches A, B, A and a
+  tampered one, each exactly the JAX package's `RollupEngine._fn` on the
+  same packed inputs; the engines route their batches through it;
+- every kernel of the library's sources reports its handle, by which a
+  captured graph's kernel nodes are counted on the card;
 - the cached constants of `field/fr.py`, `ops/sha256.py` and
   `ops/babyjubjub.py` are never written: after two batches each equals a
   fresh build.
@@ -199,19 +202,26 @@ def jax_packed(batches):
 
 @pytest.fixture(scope="module")
 def captured_runs(jax_packed):
-    """A, B, A, then the tampered batch through one CapturedCall; A's first
-    outputs as numpy before B ran."""
+    """A (op by op), B (captured), A and the tampered batch (replays)
+    through one CapturedCall; A's first outputs as numpy before B ran."""
     eng = RollupEngine(*SUITE_CONFIG, device="cpu")
     call = aot.CapturedCall(eng.run_packed_eager,
                             aot.rollup_input_shapes(*SUITE_CONFIG), "cpu")
-    call.capture()
     before = dict(kernels.launches)
-    a1 = call(jax_packed["A"][0])
+    states = []
+
+    def run(batch):
+        out = call(jax_packed[batch][0])
+        states.append((call.warm, call.outputs is not None, call.replays))
+        return out
+
+    a1 = run("A")
     a1_np = {k: v.numpy().copy() for k, v in a1[0].items()}
-    b = call(jax_packed["B"][0])
-    a2 = call(jax_packed["A"][0])
-    bad = call(jax_packed["tampered"][0])
+    b, a2, bad = run("B"), run("A"), run("tampered")
     assert kernels.launches == before
+    assert states == [(True, False, 0), (True, True, 0), (True, True, 1),
+                      (True, True, 2)]
+    assert call.graph is None and call.nodes == 0
     return call, {"A1": a1, "A1_np": a1_np, "B": b, "A2": a2, "bad": bad}
 
 
@@ -248,6 +258,32 @@ def test_captured_call_refuses_other_inputs(jax_packed, captured_runs):
                              {"s": ((16, 3), torch.int64)}, "cpu")
     with pytest.raises(RuntimeError, match="before capture"):
         fresh.replay()
+    fresh.capture()
+    with pytest.raises(RuntimeError, match="already captured"):
+        fresh.capture()
+
+
+def test_engines_route_through_their_captured_call(withdraw_lanes):
+    """On the CPU the engines hold a CapturedCall too: a width's first
+    batch op by op, the second captured, the third replayed, each equal to
+    the eager route; each Withdraw width its own call."""
+    eng = WithdrawEngine(WITHDRAW_LEVELS, device="cpu")
+    rollup = RollupEngine(*SUITE_CONFIG, device="cpu")
+    assert isinstance(rollup.call, aot.CapturedCall)
+    assert rollup.call.shapes == aot.rollup_input_shapes(*SUITE_CONFIG)
+    assert rollup.call._inputs is None  # nothing allocated until a batch
+    want = [eng.run_packed_eager(eng.pack(b)) for b in (withdraw_lanes,
+                                                        withdraw_lanes[:2])]
+    for i in range(3):
+        for lanes, (h, ok) in zip((withdraw_lanes, withdraw_lanes[:2]),
+                                  want):
+            got_h, got_ok = eng.run_packed(eng.pack(lanes))
+            assert torch.equal(got_h, h) and torch.equal(got_ok, ok)
+            call = eng.calls[len(lanes)]
+            assert (call.outputs is not None, call.replays) == \
+                (i > 0, max(i - 1, 0))
+    assert sorted(eng.calls) == [2, len(withdraw_lanes)]
+    assert eng.compile(2) is eng.calls[2]
 
 
 # ---------------------------------------------------------------------------
@@ -279,3 +315,38 @@ def test_cached_constants_are_never_written(monkeypatch, batches,
     for name, cached in tables.items():
         for a in asked[name]:
             assert torch.equal(cached(*a), cached.__wrapped__(*a)), (name, a)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' handles
+# ---------------------------------------------------------------------------
+
+
+def test_every_kernel_reports_its_handle():
+    """Each source's `ctpu_*_funcs` lists every `__global__` function of
+    that source, in the order and number `kernels.FUNCS` gives them names;
+    so on the card every kernel node of a captured graph is counted under
+    its wrapper's name and none is missed."""
+    import re
+
+    sources = {"ctpu_poseidon_funcs": "poseidon.cu",
+               "ctpu_smt_funcs": "smt.cu", "ctpu_eddsa_funcs": "eddsa.cu",
+               "ctpu_sha256_funcs": "sha256.cu",
+               "ctpu_rounds_funcs": "poseidon_rounds.cu"}
+    assert sorted(sources) == sorted(kernels.FUNCS)
+    assert set(kernels.SOURCES) - set(sources.values()) == {"mont_rate.cu"}
+    assert "funcs.cuh" in kernels.HEADERS
+    names = set()
+    for fn, src in sources.items():
+        text = (kernels.CSRC / src).read_text()
+        defined = re.findall(
+            r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?\s+(\w+)\(",
+            text)
+        body = text[text.index(f'extern "C" int {fn}(void** out)'):]
+        body = body[:body.index("\n}")]
+        listed = re.findall(r"\(const void\*\)(\w+)", body)
+        assert sorted(set(listed)) == sorted(defined), src
+        assert len(listed) == len(kernels.FUNCS[fn]), src
+        assert re.search(rf"kernel_funcs\(k, {len(listed)}, out\)", body)
+        names.update(kernels.FUNCS[fn])
+    assert names == set(kernels.launches)

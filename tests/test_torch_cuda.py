@@ -143,15 +143,22 @@ def test_sha256_kernel_matches_plain_and_hashlib(cuda, lanes, nblocks):
 
 
 def test_engine_on_cuda_matches_builder_through_the_kernels(cuda):
+    """Every suite batch through one engine (the first op by op, the second
+    captured, the rest replayed), each through every kernel of the main
+    path: the wrappers' launches, and for a replay the graph's kernel
+    nodes."""
     engine = RollupEngine(*SUITE_CONFIG, device=cuda)
     for name, bb in suite_batches().items():
+        replays = engine.call.replays
         kernels.reset_launches()
         out, ok = engine.run(bb.get_input())
+        ran = {k: n + (engine.call.replays - replays) * engine.call.counts[k]
+               for k, n in kernels.launches.items()}
         assert ok, name
         want = oracle_outputs(bb)
         assert {k: out[k] for k in want} == want, name
-        assert all(kernels.launches[k] > 0 for k in kernels.MAIN_PATH), \
-            (name, kernels.launches)
+        assert all(ran[k] > 0 for k in kernels.MAIN_PATH), (name, ran)
+    assert engine.call.replays == len(suite_batches()) - 1
 
 
 def test_full_round_kernels_match_plain_each_other_and_mirror(cuda):
@@ -197,9 +204,8 @@ def test_withdraw_engine_on_cuda_matches_builder(cuda, lanes):
             batch[lane] = withdraw_cases.tamper(batch[lane], kinds[lane],
                                                 n_levels)
     engine = WithdrawEngine(n_levels, device=cuda)
-    engine.compile(lanes)  # the capture's warm-up runs launch for real
     kernels.reset_launches()
-    hashes, ok = engine.run(batch)
+    hashes, ok = engine.run(batch)  # the width's first batch: op by op
     assert isinstance(ok, np.ndarray) and ok.dtype == np.bool_
     assert np.flatnonzero(~ok).tolist() == sorted(kinds)
     assert hashes == [hash_inputs_withdraw(d) for d in batch]
@@ -253,18 +259,17 @@ def _no_wrapper(*args, **kwargs):
 
 
 def test_captured_rollup_main_equals_eager_and_builder(cuda, monkeypatch):
-    """Batches A, B, A and a tampered A through one captured graph: each
-    output limb-equal to the eager route's, A's and B's to the builder's,
-    the tampered one refused; the replays call no Python kernel wrapper,
-    and the launches advance by the capture's counts a replay. (The CPU
-    tests hold the same bookkeeping against the JAX package, which the
-    card's machine does not have.)"""
+    """Batches A, B, A and a tampered A through one engine: A op by op, B
+    captured and replayed, then replays of the graph, which call no Python
+    kernel wrapper and add nothing to `kernels.launches`; the graph's
+    kernel nodes, read from the graph, are the launches of the eager run.
+    Each output limb-equal to the eager route's, A's and B's to the
+    builder's, the tampered one refused. (The CPU tests hold the same
+    bookkeeping against the JAX package, which the card's machine does not
+    have.)"""
     from circuits_tpu_torch.engine import witness
 
     engine = RollupEngine(*SUITE_CONFIG, device=cuda)
-    graph = engine.compile()
-    assert engine.compile() is graph and graph.node_count() > 1000
-    assert all(graph.counts[k] > 0 for k in kernels.MAIN_PATH), graph.counts
     bbs = suite_batches()
     bad = dict(bbs["l2"].get_input())  # get_input() keeps its dict
     bad["s"] = list(bad["s"])
@@ -272,15 +277,26 @@ def test_captured_rollup_main_equals_eager_and_builder(cuda, monkeypatch):
     inputs = [bbs["l2"].get_input(), bbs["deposit"].get_input(),
               bbs["l2"].get_input(), bad]
     packs = [engine.pack(inp) for inp in inputs]
+    kernels.reset_launches()
     eager = [engine.run_packed_eager(p) for p in packs]
+    eager_launches = {k: n // 4 for k, n in kernels.launches.items()}
+    graph = engine.call
+    kernels.reset_launches()
+    outs = [engine.run_packed(p) for p in packs[:2]]
+    # A ran op by op; B's recording was taken back out, its replay adds none
+    assert kernels.launches == eager_launches
+    assert graph.counts == eager_launches and graph.nodes > 1000
+    assert all(graph.counts[k] > 0 for k in kernels.MAIN_PATH), graph.counts
+    assert engine.compile() is graph and graph.replays == 1
     kernels.reset_launches()
     for mod, name in ((poseidon, "permute_mont"), (smt, "processor_chain"),
                       (babyjubjub, "eddsa_ok_mont"),
                       (sha256, "sha256_chain"), (witness, "rollup_main")):
         monkeypatch.setattr(mod, name, _no_wrapper)
-    outs = [engine.run_packed(p) for p in packs]
+    outs += [engine.run_packed(p) for p in packs[2:]]
     monkeypatch.undo()
-    assert kernels.launches == {k: 4 * n for k, n in graph.counts.items()}
+    assert graph.replays == 3
+    assert not any(kernels.launches.values()), kernels.launches
     for (out, ok), (want, want_ok) in zip(outs, eager):
         assert bool(ok) == bool(want_ok)
         assert sorted(out) == sorted(want)
@@ -309,9 +325,10 @@ def test_captured_call_refuses_other_shapes(cuda):
 
 @pytest.mark.parametrize("lanes", [1, 33])
 def test_captured_withdraw_equals_eager_and_builder(cuda, lanes):
-    """Withdraw's graph at 1 and 33 lanes (one graph a width): hashes and
-    verdicts equal the eager route's and the builder's, exactly the
-    tampered lanes refused, A/B/A replays exact."""
+    """Withdraw's graph at 1 and 33 lanes (one graph a width, captured
+    ahead): hashes and verdicts equal the eager route's and the builder's,
+    exactly the tampered lanes refused, A/B/A replays exact; the graph's
+    kernel nodes are K1's and K4's launches of one eager batch."""
     n_levels = 16
     rng = random.Random(100 + lanes)
     good = withdraw_cases.exit_tree_batch(rng, max(lanes, 2), n_levels)
@@ -323,10 +340,13 @@ def test_captured_withdraw_equals_eager_and_builder(cuda, lanes):
                                           n_levels)
     engine = WithdrawEngine(n_levels, device=cuda)
     graph = engine.compile(lanes)
+    assert "warmup" in graph.seconds and graph.replays == 0
     kernels.reset_launches()
     runs = [engine.run(b) for b in (good, bad, good)]
-    assert kernels.launches == {k: 3 * n for k, n in graph.counts.items()}
-    assert graph.counts["poseidon_permute"] == 3 + n_levels + 1
+    assert not any(kernels.launches.values()) and graph.replays == 3
+    assert graph.counts == {**dict.fromkeys(kernels.launches, 0),
+                            "poseidon_permute": 3 + n_levels + 1,
+                            "sha256_chain": 1}
     for (hashes, ok), batch in zip(runs, (good, bad, good)):
         assert hashes == [hash_inputs_withdraw(d) for d in batch]
         h, k = engine.run_packed_eager(engine.pack(batch))
@@ -335,3 +355,20 @@ def test_captured_withdraw_equals_eager_and_builder(cuda, lanes):
     assert runs[0][1].all() and runs[2][1].all()
     assert np.flatnonzero(~runs[1][1]).tolist() == tampered
     assert runs[0][0] == runs[2][0]
+
+
+def test_withdraw_widths_share_one_graph_pool(cuda):
+    """Two widths of one engine capture into one memory pool, and the
+    narrower graph still replays right after the wider one was captured.
+    The engine is made on "cuda" with no index, as a user makes it: its
+    tensors then lie on cuda:0, which its captured calls must accept."""
+    n_levels = 16
+    lanes = withdraw_cases.exit_tree_batch(random.Random(5), 33, n_levels)
+    engine = WithdrawEngine(n_levels, device="cuda")
+    narrow, wide = engine.compile(1), engine.compile(33)
+    assert narrow.pool is wide.pool is not None
+    assert narrow.graph.pool() == wide.graph.pool()
+    for batch in (lanes, lanes[:1], lanes, lanes[:1]):
+        hashes, ok = engine.run(batch)
+        assert ok.all() and hashes == [hash_inputs_withdraw(d) for d in batch]
+    assert narrow.replays == wide.replays == 2
