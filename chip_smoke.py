@@ -61,15 +61,33 @@ Phases (any failure raises, and the exit code is then non-zero):
     and K4 calls recorded on the eager route; `run_packed` timed (median of
     5, each ending in a host copy of the hashes), and its layers (state
     hash, verifier, hash) each on their own;
- 9. the debug paths on phase 4's batch: `_full_debug` gives `run`'s
-    outputs and verdict, `trace` agrees with the builder's input on
-    lane_ok, decode.fromIdx and the chain of newStateRoot, `check_batch`
-    on phase 5's tampered batch names lane 5 and no other; then the
-    witness vector at a smaller depth with the widths kept:
-    `export_witness` -> `write_wtns` -> `load_witness` -> `verify_witness`
-    (pure Python) on a RollupMain(16, 32, 8, 4) batch and
+ 9. the compiled debug routes (engine/aot.py) on phase 4's engine and
+    batch A and a second production batch B from the seed (phase 13's):
+    `trace_call` (`trace` / `get_signal`), `debug_call` (`_full_debug`)
+    and `check_batch`'s compiled check, each run A op by op (the warm-up,
+    its wrapper launches counted), captured at B (recording,
+    instantiation, node count, the kernel nodes read from the graph equal
+    to those launches, the reserved memory before and after, the static
+    outputs' and inputs' bytes) and replayed on A, B and A equal to the
+    eager route limb for limb, then a replay median of 5 beside the eager
+    route's median of 3 with `max_memory_allocated` of each; then the
+    entry points as replays: `_full_debug` gives `run`'s outputs and
+    verdict and B's the builder's, `trace` agrees with the builder's input
+    on lane_ok, decode.fromIdx and the chain of newStateRoot, `get_signal`
+    one lane, `check_batch` on phase 5's tampered batch names lane 5 and no
+    other; the main graph, `debug_call`, `trace_call` and the main graph
+    replayed in turns out of the engine's one pool, each exact;
+    `export_witness` + `write_wtns` at RollupMain(2048, 32, 256, 64)
+    through the replayed `_full_debug`, its device part and host assembly
+    apart; then the witness vector at a smaller depth with the widths
+    kept: `export_witness` -> `write_wtns` -> `load_witness` ->
+    `verify_witness` (pure Python) on a RollupMain(16, 32, 8, 4) batch and
     `export_witness_withdraw` -> `verify_withdraw_witness` on 8 lanes of
-    phase 8, each of which must pass and must fail with one value changed.
+    phase 8, each of which must pass and must fail with one value changed;
+    last, Withdraw's `run_debug` on phase 8's 32768 lanes: op by op, the
+    capture at a batch with 64 lanes tampered (exactly those refused
+    through the graph, every hash the builder's), hash, ok and state_hash
+    replayed equal to the eager route, both routes timed.
 10. the modules with no kernel of their own, on the card: the BabyJubJub
     point operations (`scalar_mul_base8` and `scalar_mul_var` of BASE8 on
     1024 random scalars below the subgroup order, `points_equal` on every
@@ -97,7 +115,7 @@ Phases (any failure raises, and the exit code is then non-zero):
 13. the captured engines (engine/aot.py) on phase 4's and phase 8's
     batches: the graph's outputs limb-equal to `run_packed_eager`'s and the
     builder's; phase 5's tampered batch refused through the graph; batches
-    A, B, A (B a second production batch from the seed) replayed exactly;
+    A, B, A (B phase 9's second production batch) replayed exactly;
     Withdraw's tampered lanes refused through its graph, exactly those;
     the capture's seconds, its node count (`cuGraphGetNodes`) and memory,
     `torch.cuda.max_memory_allocated` of each route, and both routes'
@@ -113,8 +131,10 @@ rounds (3 dependent operations a round) over the card's clock. No PyTorch call c
 functions, so `library_ms` is null in every row.
 
 The line before the last is {"kernels": [...]} (each row also with the
-kernel nodes of phase 4's graph, of the 32768-lane Withdraw graph, and its
-launches in phase 12's world of one);
+kernel nodes of phase 4's graph, of the 32768-lane Withdraw graph, its
+launches in phase 12's world of one, and the kernel nodes of phase 9's
+debug graphs: `trace_call`, `debug_call`, `check_batch`'s and Withdraw's
+`run_debug` at 32768 lanes);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -157,6 +177,7 @@ from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
                                     poseidon_rounds, sha256, smt)
 from circuits_tpu_torch.parallel import (  # noqa: E402
     make_sharded_rollup_main, make_tx_mesh)
+from circuits_tpu_torch.r1cs import checker  # noqa: E402
 from circuits_tpu_torch.r1cs.checker import check_batch  # noqa: E402
 from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
     verify_withdraw_witness, verify_witness)
@@ -923,16 +944,131 @@ def check_withdraw(rng, card):
     return engine, lanes, graph.counts, packed
 
 
-def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
-    """Phase 9: `_full_debug`, `trace`, `get_signal` and `check_batch` on
-    the production batch, then the witness vectors at a smaller depth."""
-    n_tx = engine.params[0]
+def tensor_leaves(tree):
+    """The tensors of a tree of dicts, tuples and lists, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def same_tree(a, b, what):
+    """Two trees of tensors equal key for key and limb for limb."""
+    if isinstance(b, dict):
+        assert sorted(a) == sorted(b), what
+        for k in b:
+            same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(b, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{what}[{i}]")
+    else:
+        assert a.shape == b.shape and torch.equal(a, b), what
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under the tensors of `tree`."""
+    seen = {}
+    for t in tensor_leaves(tree):
+        seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def drive_route(name, call, eager, packed, packed_b, card):
+    """One compiled debug route on the production batch A and on B: the
+    first call (A, op by op, the warm-up), the capture at the second (B,
+    with its replay), a replay of A. The graph's kernel nodes, read from the
+    graph, must be the first call's wrapper launches; B and A replayed must
+    equal the eager route limb for limb. Then both routes timed (replay
+    median of 5, eager median of 3). Returns (A, B) replayed."""
+    mib = 2.0 ** 20
+    assert not call.warm and call.outputs is None, name
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    first = call(packed)
+    sync()
+    t_first = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    kernels.reset_launches()
+    reserved = kept_memory()
+    t0 = time.perf_counter()
+    out_b = call(packed_b)
+    sync()
+    t_capture = time.perf_counter() - t0
+    after = kept_memory()
+    assert not any(kernels.launches.values()), (name, kernels.launches)
+    assert call.counts == launches, (name, call.counts, launches)
+    out_a = call(packed)
+    same_tree(out_a, first, f"{name}: A replayed vs A op by op")
+    same_tree(out_b, eager(packed_b), f"{name}: B replayed vs eager")
+    eager_t, eager_mem = route_times(lambda: eager(packed), reps=3)
+    graph_t, graph_mem = route_times(lambda: call(packed))
+    replay, eager_s = statistics.median(graph_t), statistics.median(eager_t)
+    print(f"  {name}: first call (op by op) {t_first:.3f} s, wrapper "
+          f"launches {launches}; capture at the second call "
+          f"{t_capture:.3f} s with its replay ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in call.seconds.items())
+          + f"), {call.nodes} nodes, kernel nodes {call.counts} == the first "
+          f"call's launches; A, B, A replayed == op by op; replay median "
+          f"{replay:.4f} s {['%.4f' % t for t in graph_t]} "
+          f"(max_memory_allocated {graph_mem / mib:.1f} MiB), eager median "
+          f"{eager_s:.4f} s {['%.4f' % t for t in eager_t]} "
+          f"(max_memory_allocated {eager_mem / mib:.1f} MiB); reserved "
+          f"{reserved / mib:.1f} -> {after / mib:.1f} MiB over the capture "
+          f"(+{(after - reserved) / mib:.1f}, the shared pool's growth and "
+          f"the static outputs in it); static outputs "
+          f"{storage_bytes(call.outputs) / mib:.1f} MiB, static inputs "
+          f"{storage_bytes(call.inputs) / mib:.1f} MiB; on {card}",
+          flush=True)
+    return out_a, out_b
+
+
+def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
+                      wpacked, card):
+    """Phase 9: the compiled debug routes on the production batch --
+    `trace` / `get_signal` (`trace_call`), `_full_debug` (`debug_call`) and
+    `check_batch` (its compiled check) -- each driven by `drive_route`,
+    then through its entry point as a replay; the engine's graphs replayed
+    in turns out of the one pool; `export_witness` at this shape; the
+    witness vectors at a smaller depth; Withdraw's `run_debug` on phase 8's
+    lanes. Returns each graph's kernel nodes by kernel."""
+    n_tx, n_levels, _, max_fee = engine.params
+    packed, packed_b = engine.pack(inp), engine.pack(bb_b.get_input())
+    mib = 2.0 ** 20
+    print(f"compiled debug routes on RollupMain{engine.params} (A the "
+          "production batch, B phase 13's second one):", flush=True)
+    trace_a, _ = drive_route("trace_call", engine.trace_call,
+                             engine._trace_lanes_eager, packed, packed_b,
+                             card)
+    debug_a, debug_b = drive_route("debug_call", engine.debug_call,
+                                   engine._full_debug_eager, packed,
+                                   packed_b, card)
+    check = checker.compiled_check(engine.params, engine.device)
+    drive_route("check_batch", check,
+                lambda p: checker.check_masks(p, n_tx, n_levels, max_fee),
+                packed, packed_b, card)
+
+    # the entry points, each a replay: no wrapper runs
+    kernels.reset_launches()
+    replays = (engine.trace_call.replays, engine.debug_call.replays,
+               check.replays)
     t0 = time.perf_counter()
     lanes, lane_ok, dout, ok = engine._full_debug(inp)
     assert bool(ok) and bool(lane_ok.all())
     assert engine.unpack_outputs(dout) == out, "_full_debug != run"
+    _, _, dout_b, ok_b = debug_b
+    assert bool(ok_b)
+    want_b = {"hash_global_inputs": bb_b.get_hash_inputs(),
+              "new_state_root": bb_b.get_new_state_root(),
+              "new_exit_root": bb_b.get_new_exit_root(),
+              "new_last_idx": bb_b.get_new_last_idx()}
+    got_b = engine.unpack_outputs(dout_b)
+    assert {k: got_b[k] for k in want_b} == want_b, "_full_debug(B)"
     t_debug = time.perf_counter() - t0
-
     t0 = time.perf_counter()
     tr = engine.trace(inp)
     assert set(tr) == set(engine.SIGNALS) | {"lane_ok", "accFeeOut"}
@@ -943,19 +1079,80 @@ def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
     assert tr["newStateRoot"] == roots
     assert engine.get_signal(inp, f"newStateRoot[{n_tx - 1}]") == roots[-1]
     t_trace = time.perf_counter() - t0
-
     t0 = time.perf_counter()
     res = check_batch(engine.pack(bad), *engine.params)
     assert not res["ok"]
     assert np.flatnonzero(~res["lane_ok"]).tolist() == [5], \
         "check_batch does not name the tampered lane alone"
-    assert res["fee_ok"].all() and res["fee_ok"].shape == (engine.params[3],)
+    assert res["fee_ok"].all() and res["fee_ok"].shape == (max_fee,)
+    assert check_batch(packed, *engine.params)["ok"]
     t_check = time.perf_counter() - t0
-    print(f"debug paths on RollupMain{engine.params}: _full_debug == run "
-          f"({t_debug:.1f} s); trace: lane_ok all True, decode.fromIdx and "
+    assert not any(kernels.launches.values()), kernels.launches
+    assert (engine.trace_call.replays, engine.debug_call.replays,
+            check.replays) == (replays[0] + 2, replays[1] + 1,
+                               replays[2] + 2)
+    print(f"entry points through the graphs (replays, no wrapper called): "
+          f"_full_debug == run and the builder's hash and roots on A and B "
+          f"({t_debug:.3f} s); trace: lane_ok all True, decode.fromIdx and "
           f"the chain of newStateRoot as the builder's input, get_signal one "
-          f"lane ({t_trace:.1f} s for both); check_batch on the tampered "
-          f"batch: lane 5 alone, fee_ok all True ({t_check:.1f} s)",
+          f"lane ({t_trace:.3f} s for both, host reads included); "
+          f"check_batch on phase 5's tampered batch: lane 5 alone, fee_ok "
+          f"all True, then A passes ({t_check:.3f} s for both)", flush=True)
+
+    # the engine's graphs in turns out of its one pool, each exact
+    main_a, main_ok = engine.run_packed(packed)
+    assert bool(main_ok) and bool(debug_a[3])
+    same_tree(main_a, {k: debug_a[2][k] for k in main_a},
+              "the main graph vs debug_call's outputs")
+    refs = {"main": (main_a, main_ok), "debug_call": debug_a,
+            "trace_call": trace_a}
+    routes = {"main": lambda: engine.run_packed(packed),
+              "debug_call": lambda: engine.debug_call(packed),
+              "trace_call": lambda: engine.trace_call(packed)}
+    for name in ("main", "debug_call", "trace_call", "main"):
+        same_tree(routes[name](), refs[name], f"interleaved {name}")
+    assert engine.call.pool is engine.debug_call.pool is \
+        engine.trace_call.pool is not None
+    print(f"shared pool: the main graph, debug_call, trace_call, the main "
+          f"graph replayed in turns, each exact; reserved memory "
+          f"{kept_memory() / mib:.1f} MiB with the engine's three graphs and "
+          f"the check's", flush=True)
+
+    # the witness vector at this shape, through the replayed _full_debug
+    replayed = engine._full_debug
+    device_s = []
+
+    def timed(inp_):
+        t0 = time.perf_counter()
+        res = replayed(inp_)
+        sync()
+        device_s.append(time.perf_counter() - t0)
+        return res
+
+    engine._full_debug = timed
+    try:
+        t0 = time.perf_counter()
+        names, values = witness_vector.export_witness(engine, inp)
+        t_export = time.perf_counter() - t0
+    finally:
+        del engine._full_debug
+    assert len(device_s) == 1 and len(names) == len(values)
+    assert values[1] == bb_a.get_hash_inputs()
+    w = dict(zip(names, values))
+    assert w["main.newStateRoot"] == bb_a.get_new_state_root()
+    assert w["main.newLastIdx"] == bb_a.get_new_last_idx()
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        wtns = os.path.join(tmp, "w.wtns")
+        t0 = time.perf_counter()
+        witness_vector.write_wtns(wtns, values)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(wtns)
+    assert size == 12 + 12 + 40 + 12 + 32 * len(values)
+    print(f"export_witness of RollupMain{engine.params} on {card}: "
+          f"{len(values)} signals, {t_export:.3f} s = _full_debug replayed "
+          f"(pack and clone included) {device_s[0]:.3f} s + host assembly "
+          f"{t_export - device_s[0]:.3f} s; write_wtns {t_write:.3f} s, "
+          f"{size} bytes; hash, newStateRoot, newLastIdx the builder's",
           flush=True)
 
     # the witness vectors; their pure-Python checker bounds the depth
@@ -1003,6 +1200,60 @@ def check_debug_paths(engine, inp, bad, out, wengine, wlanes):
           f"the card: {len(values)} signals; verify_withdraw_witness passes "
           f"({res['n_checked']} relations) and fails with one value changed "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # Withdraw's run_debug at phase 8's width
+    n = len(wlanes)
+    call = wengine.debug_call_for(n)
+    bad_w, kinds = list(wlanes), {}
+    pick = random.Random(SEED + 9)
+    for j, lane in enumerate(sorted(pick.sample(range(n), 64))):
+        kinds[lane] = withdraw_cases.TAMPERS[j % len(withdraw_cases.TAMPERS)]
+        bad_w[lane] = withdraw_cases.tamper(wlanes[lane], kinds[lane],
+                                            N_LEVELS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hashes, ok, _ = wengine.run_debug(wlanes)
+    sync()
+    t_first = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    assert ok.all() and hashes == [hash_inputs_withdraw(d) for d in wlanes]
+    kernels.reset_launches()
+    reserved = kept_memory()
+    t0 = time.perf_counter()
+    hashes, ok, _ = wengine.run_debug(bad_w)
+    sync()
+    t_capture = time.perf_counter() - t0
+    after = kept_memory()
+    assert not any(kernels.launches.values()), kernels.launches
+    assert call.counts == launches, (call.counts, launches)
+    assert np.flatnonzero(~ok).tolist() == sorted(kinds), \
+        "the refused lanes are not the tampered ones"
+    assert hashes == [hash_inputs_withdraw(d) for d in bad_w]
+    same_tree(call(wpacked),
+              wengine.run_packed_eager(wpacked, debug=True),
+              "Withdraw debug: replayed vs eager")
+
+    eager_t, eager_mem = route_times(
+        lambda: wengine.run_packed_eager(wpacked, debug=True), reps=3)
+    graph_t, graph_mem = route_times(lambda: call(wpacked))
+    print(f"Withdraw({N_LEVELS}) x {n} run_debug on {card}: first call (op "
+          f"by op, pack included) {t_first:.3f} s, launches {launches}; "
+          f"capture at the second {t_capture:.3f} s with its pack and replay "
+          "(" + ", ".join(f"{k} {v:.3f} s" for k, v in call.seconds.items())
+          + f"), {call.nodes} nodes, kernel nodes {call.counts}; every hash "
+          f"the builder's, {len(kinds)} tampered lanes and only those refused "
+          f"through the graph; hash, ok and state_hash replayed == eager; "
+          f"replay median {statistics.median(graph_t):.4f} s "
+          f"{['%.4f' % t for t in graph_t]} (max_memory_allocated "
+          f"{graph_mem / mib:.1f} MiB), eager median "
+          f"{statistics.median(eager_t):.4f} s "
+          f"{['%.4f' % t for t in eager_t]} (max_memory_allocated "
+          f"{eager_mem / mib:.1f} MiB); reserved {reserved / mib:.1f} -> "
+          f"{after / mib:.1f} MiB over the capture; static outputs "
+          f"{storage_bytes(call.outputs) / mib:.1f} MiB", flush=True)
+    return {"trace": engine.trace_call.counts,
+            "debug": engine.debug_call.counts, "check": check.counts,
+            "withdraw_debug": call.counts}
 
 
 def check_new_modules(dev, rng):
@@ -1292,8 +1543,8 @@ def route_times(run, reps=5):
     return times, torch.cuda.max_memory_allocated()
 
 
-def check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
-                   wpacked, rng, card):
+def check_captured(engine, packed, bb, bb_b, bad, captured, wengine,
+                   wlanes, wpacked, rng, card):
     """Phase 13: the captured engines against the eager route and the
     builder, A/B/A replays, the tampered batches through the graphs, and
     both routes' times and memory."""
@@ -1312,10 +1563,7 @@ def check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
         assert got["new_last_idx"] == batch.get_new_last_idx(), what
 
     # A, B, A: graph against eager and builder, replays exact
-    t0 = time.perf_counter()
-    bb_b = production_batch(*engine.params, step=3, amount=777)
     packed_b = engine.pack(bb_b.get_input())
-    t_b = time.perf_counter() - t0
     a1, ok_a1 = engine.run_packed(packed)
     b, ok_b = engine.run_packed(packed_b)
     a2, ok_a2 = engine.run_packed(packed)
@@ -1334,9 +1582,8 @@ def check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
     _, ok_bad = engine.run_packed(engine.pack(bad))
     assert not bool(ok_bad), "the graph accepted the tampered batch"
     print(f"RollupMain{engine.params} graph: A, B, A and eager A, B limb for "
-          f"limb equal, A and B exact vs builder (B built in {t_b:.1f} s: "
-          "every account pays the one 3 on, 777 a transfer), the tampered "
-          "batch refused", flush=True)
+          f"limb equal, A and B exact vs builder, the tampered batch "
+          "refused", flush=True)
 
     # both routes' times and memory
     def graph_run():
@@ -1598,9 +1845,14 @@ def main() -> None:
     wengine, wlanes, wlaunches, wpacked = check_withdraw(rng, card)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9 - the debug paths and the witness vectors
+    # 9 - the compiled debug routes and the witness vectors
     t0 = time.perf_counter()
-    check_debug_paths(engine, inp, bad, out, wengine, wlanes)
+    bb_b = production_batch(n_tx, N_LEVELS, max_l1, max_fee, step=3,
+                            amount=777)
+    print(f"batch B built in {time.perf_counter() - t0:.1f} s: every "
+          "account pays the one 3 on, 777 a transfer", flush=True)
+    debug_counts = check_debug_paths(engine, inp, bad, out, bb, bb_b,
+                                     wengine, wlanes, wpacked, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 10 - the modules with no kernel of their own
@@ -1624,7 +1876,7 @@ def main() -> None:
     # 13 - the captured engines
     t0 = time.perf_counter()
     print("captured engines:", flush=True)
-    check_captured(engine, packed, bb, bad, captured, wengine, wlanes,
+    check_captured(engine, packed, bb, bb_b, bad, captured, wengine, wlanes,
                    wpacked, rng, card)
     print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1636,6 +1888,11 @@ def main() -> None:
                          graph_launches=captured["counts"][name],
                          withdraw_launches=wlaunches[name],
                          sharded_launches=slaunches[name],
+                         trace_graph_launches=debug_counts["trace"][name],
+                         debug_graph_launches=debug_counts["debug"][name],
+                         check_graph_launches=debug_counts["check"][name],
+                         withdraw_debug_graph_launches=debug_counts[
+                             "withdraw_debug"][name],
                          max_abs_err=r["err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=None))

@@ -11,7 +11,11 @@ field operations and the kernels K1-K4 of `csrc/` -- is recorded once by
 (`rollup_input_shapes`, `withdraw_input_shapes`). Each batch is copied into
 those buffers and the graph is replayed: the same kernels with the same
 arguments, launched from the graph in one call instead of op by op from
-Python. The arithmetic is the eager path's own.
+Python. The arithmetic is the eager path's own. The debug routes that the
+JAX package jits -- `RollupEngine._trace_lanes` and `_full_debug`,
+`WithdrawEngine.run_debug`, `r1cs.checker.check_batch` -- hold a
+`CapturedCall` each in the same way, whose outputs are trees of every
+intermediate.
 
 `CapturedCall` follows PyTorch's recipe: an eager run first, which builds
 the kernel library, puts its constants on the device and fills every
@@ -99,29 +103,56 @@ def withdraw_input_shapes(n_levels: int, lanes: int) -> dict:
 
 
 def _tree_map(fn, tree):
-    """`fn` on every tensor of a tree of dicts, tuples and lists."""
+    """`fn` on every tensor of a tree of dicts, tuples and lists; any other
+    leaf (an int, a string, None) is passed through as it is."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 def _copy_into(dst, src) -> None:
-    """Copy a tree of tensors into another of the same structure."""
+    """Copy a tree of tensors into another of the same structure. A leaf
+    that is no tensor was fixed when the call was captured, as a graph
+    fixes it: it must come out the same."""
     if isinstance(dst, dict):
         for k in dst:
             _copy_into(dst[k], src[k])
     elif isinstance(dst, (tuple, list)):
         for d, s in zip(dst, src, strict=True):
             _copy_into(d, s)
-    else:
+    elif isinstance(dst, torch.Tensor):
         dst.copy_(src)
+    elif dst != src:
+        raise RuntimeError(
+            f"CapturedCall: an output that is no tensor changed from {dst!r} "
+            f"to {src!r}; a captured graph cannot replay a value that "
+            "depends on the data")
+
+
+def pinned_device(device) -> torch.device:
+    """`device` as a tensor on it names it: "cuda" pinned to the current
+    card's index. Raises ValueError for a device other than the CPU or a
+    card."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"CapturedCall: unsupported device {device}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def graph_pool(device):
-    """A memory pool that the graphs captured on `device` may share when
-    they never replay at the same time (None on the CPU)."""
+    """A memory pool that the graphs captured on `device` may share (None
+    on the CPU).
+
+    Graphs of different functions may share it, in any order of replay, on
+    two conditions that `CapturedCall` keeps: no two of them replay at the
+    same time (one stream), and a replay's static outputs are cloned before
+    any other graph replays, since another graph's intermediates may lie
+    where they do. The static inputs are allocated before the capture,
+    outside the pool, so no graph writes them."""
     device = torch.device(device)
     return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
 
@@ -173,15 +204,17 @@ class CapturedCall:
     """`fn(inputs)` on static input buffers of fixed shapes: run op by op at
     its first call, captured at its second, replayed from then on.
 
-    `fn` takes a dict of tensors and returns a tree (dicts, tuples) of
-    tensors. Each call copies a packed dict into the static inputs (shapes,
-    dtypes and device must be those given, else ValueError). The first call
-    runs `fn` on them eagerly -- the warm-up a capture needs, on the
-    caller's own batch -- and returns its outputs. The second call captures
-    and replays, later ones replay; a replay returns clones of the static
-    outputs, so two batches never share memory. `capture()` made before
-    any call (an engine's `compile()`) first warms up on zero inputs on a
-    side stream.
+    `fn` takes a dict of tensors and returns a tree (dicts, tuples, lists)
+    of tensors; a leaf that is no tensor is passed through. Each call copies
+    a packed dict into the static inputs (shapes, dtypes and device must be
+    those given, else ValueError). The first call runs `fn` on them eagerly
+    -- the warm-up a capture needs, on the caller's own batch -- and
+    returns its outputs. The second call captures and replays, later ones
+    replay. Every call returns clones, leaf by leaf, so two batches never
+    share memory, with each other or with the static buffers: two leaves
+    that are one tensor, or a leaf that is a static input passed through,
+    come back as clones of their own. `capture()` made before any call (an
+    engine's `compile()`) first warms up on zero inputs on a side stream.
 
     On a CUDA device the capture records one call as a CUDA graph, in
     `pool` (see `graph_pool`) or else a private pool. A kernel wrapper that
@@ -199,12 +232,7 @@ class CapturedCall:
     def __init__(self, fn, shapes: dict, device, pool=None):
         self.fn = fn
         self.shapes = shapes
-        self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"CapturedCall: unsupported device {device}")
-        if self.device.type == "cuda" and self.device.index is None:
-            # as a tensor on "cuda" names its device
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = pinned_device(device)
         self.pool = pool
         self._inputs = None
         self.warm = False  # `fn` has run on these buffers

@@ -19,11 +19,17 @@ ahead instead). A capture or replay that fails raises; nothing falls back
 to the eager path. On the CPU the same bookkeeping runs the plain calls.
 `run_packed_eager` runs the circuit op by op, for debugging and for
 callers that watch the Python kernel wrappers, which a replay never calls.
-The debug paths (`trace`, `_full_debug`, `run_debug`) are eager on every
-device.
+The debug routes are compiled the same way, as the JAX engines jit them:
+`trace` / `get_signal` (`RollupEngine.trace_call`), `_full_debug`
+(`debug_call`, the witness-vector export) and `WithdrawEngine.run_debug`
+(`debug_call_for`); `_trace_lanes_eager`, `_full_debug_eager` and
+`run_packed_eager(debug=True)` are their op-by-op routes. An engine's
+graphs share one memory pool (`aot.graph_pool` says why that is safe).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -153,10 +159,17 @@ class RollupEngine:
                  device="cuda"):
         self.params = (n_tx, n_levels, max_l1_tx, max_fee_tx)
         self.device = resolve_device(device)
-        # the compiled circuit
-        self.call = CapturedCall(self.run_packed_eager,
-                                 rollup_input_shapes(*self.params),
-                                 self.device)
+        # the compiled circuit and its two debug routes, on the same input
+        # shapes, in one memory pool: a call clones its outputs before any
+        # other replays, and the static inputs lie outside the pool
+        self._pool = graph_pool(self.device)
+        shapes = rollup_input_shapes(*self.params)
+        self.call = CapturedCall(self.run_packed_eager, shapes,
+                                 self.device, pool=self._pool)
+        self.trace_call = CapturedCall(self._trace_lanes_eager, shapes,
+                                       self.device, pool=self._pool)
+        self.debug_call = CapturedCall(self._full_debug_eager, shapes,
+                                       self.device, pool=self._pool)
 
     def pack(self, inp: dict) -> dict:
         return pack_rollup_inputs(inp, *self.params, device=self.device)
@@ -273,9 +286,12 @@ class RollupEngine:
 
     def _trace_lanes(self, inp: dict):
         """The lane phases with every intermediate kept: (lanes debug dict,
-        lane_ok (T,))."""
+        lane_ok (T,)), through the compiled `trace_call`."""
+        return self.trace_call(self.pack(inp))
+
+    def _trace_lanes_eager(self, packed: dict):
+        """`_trace_lanes` op by op on packed tensors."""
         n_tx, n_levels, _, max_fee_tx = self.params
-        packed = self.pack(inp)
         chains = build_chains(packed, n_tx, max_fee_tx)
         return rollup_main_lanes(packed, chains, n_tx, n_levels, max_fee_tx,
                                  debug=True)
@@ -283,13 +299,14 @@ class RollupEngine:
     def _full_debug(self, inp: dict):
         """One debug evaluation of the WHOLE circuit (lanes + fee phase +
         global hash) with every intermediate kept -- the witness-vector
-        export path (engine/witness_vector.py). Returns (lanes, lane_ok,
-        outputs, ok)."""
+        export path (engine/witness_vector.py), through the compiled
+        `debug_call`. Returns (lanes, lane_ok, outputs, ok)."""
+        return self.debug_call(self.pack(inp))
+
+    def _full_debug_eager(self, packed: dict):
+        """`_full_debug` op by op on packed tensors."""
         n_tx, n_levels, max_l1_tx, max_fee_tx = self.params
-        packed = self.pack(inp)
-        chains = build_chains(packed, n_tx, max_fee_tx)
-        lanes, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
-                                           max_fee_tx, debug=True)
+        lanes, lane_ok = self._trace_lanes_eager(packed)
         out, tail_ok = global_tail(packed, lanes, n_tx, n_levels, max_l1_tx,
                                    max_fee_tx, debug=True)
         ok = lane_ok.all() & tail_ok & (packed["im_on_chain"] <= 1).all()
@@ -349,9 +366,11 @@ class WithdrawEngine:
     def __init__(self, n_levels, device="cuda"):
         self.n_levels = n_levels
         self.device = resolve_device(device)
-        # lanes -> the compiled circuit at that batch width; all of them
-        # capture into one memory pool, since they never replay at once
+        # lanes -> the compiled circuit at that batch width, and its debug
+        # route; all of them capture into one memory pool (see
+        # `aot.graph_pool`)
         self.calls: dict[int, CapturedCall] = {}
+        self.debug_calls: dict[int, CapturedCall] = {}
         self._pool = graph_pool(self.device)
 
     def pack(self, inputs: list[dict]) -> dict:
@@ -366,6 +385,16 @@ class WithdrawEngine:
                 withdraw_input_shapes(self.n_levels, lanes), self.device,
                 pool=self._pool)
         return self.calls[lanes]
+
+    def debug_call_for(self, lanes: int) -> CapturedCall:
+        """The compiled debug route of `lanes` withdrawals
+        (`run_packed_eager(debug=True)`), made at first use."""
+        if lanes not in self.debug_calls:
+            self.debug_calls[lanes] = CapturedCall(
+                partial(self.run_packed_eager, debug=True),
+                withdraw_input_shapes(self.n_levels, lanes), self.device,
+                pool=self._pool)
+        return self.debug_calls[lanes]
 
     def compile(self, lanes: int) -> CapturedCall:
         """Capture Withdraw at `lanes` withdrawals now (once per width), not
@@ -395,6 +424,7 @@ class WithdrawEngine:
 
     def run_debug(self, inputs: list[dict]):
         """Like run() but also returns the intermediates dict (the
-        witness-vector export path)."""
-        h, ok, dbg = self.run_packed_eager(self.pack(inputs), debug=True)
+        witness-vector export path), through the compiled debug route of
+        that width."""
+        h, ok, dbg = self.debug_call_for(len(inputs))(self.pack(inputs))
         return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok), dbg

@@ -25,12 +25,10 @@ CPU, where there is no CUDA graph:
 
 import collections
 import random
-import traceback
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from circuits_tpu.engine import aot as jax_aot
 from circuits_tpu.engine.witness import RollupEngine as JaxEngine
@@ -41,10 +39,11 @@ from circuits_tpu_torch.engine.witness import (RollupEngine, WithdrawEngine,
                                                pack_rollup_inputs,
                                                pack_withdraw_inputs)
 from circuits_tpu_torch.field import fr, scalar
-from circuits_tpu_torch.ops import babyjubjub, poseidon, sha256, smt
+from circuits_tpu_torch.ops import babyjubjub, sha256
 from circuits_tpu_torch.scripts import withdraw_cases
 from circuits_tpu_torch.tools.cli import example_input
 
+from torch_capture import record_ops
 from torch_compare import SUITE_CONFIG, assert_same, suite_batches
 
 WITHDRAW_LEVELS = 16
@@ -96,61 +95,6 @@ def test_withdraw_input_shapes_match_pack(withdraw_lanes):
 # Capture-safety mirror
 # ---------------------------------------------------------------------------
 
-# ops a CUDA-graph capture refuses: a tensor made from host data (a
-# synchronous copy from pageable memory on the card), a value read back to
-# the host, an output whose shape depends on the data
-REFUSED = {"lift_fresh", "lift_fresh_copy", "_local_scalar_dense", "nonzero",
-           "masked_select", "equal", "is_nonzero", "_unique2",
-           "unique_consecutive", "unique_dim", "bincount"}
-PLAIN = ((poseidon, "permute_mont_plain"), (smt, "processor_chain_plain"),
-         (babyjubjub, "eddsa_ok_mont_plain"), (sha256, "sha256_chain_plain"))
-
-
-class OpRecorder(TorchDispatchMode):
-    """Counts every aten op; keeps where each refused op was called from.
-    Nothing is recorded while `paused`."""
-
-    def __init__(self):
-        super().__init__()
-        self.count = 0
-        self.paused = 0
-        self.refused = collections.Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if not self.paused:
-            self.count += 1
-            name = func.overloadpacket.__name__
-            bool_index = name in ("index", "index_put", "index_put_") and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in (args[1] if len(args) > 1 else ()) or ())
-            if name in REFUSED or bool_index:
-                frame = [f for f in traceback.extract_stack()
-                         if "circuits_tpu_torch" in f.filename][-1]
-                self.refused[(str(func), frame.filename.rsplit("/", 2)[-1],
-                              frame.lineno)] += 1
-        return func(*args, **kwargs)
-
-
-def _record(monkeypatch, run):
-    """`run()` under an OpRecorder, the plain versions of K1-K4 paused."""
-    rec = OpRecorder()
-    for mod, name in PLAIN:
-        real = getattr(mod, name)
-
-        def paused(*a, _real=real, **k):
-            rec.paused += 1
-            try:
-                return _real(*a, **k)
-            finally:
-                rec.paused -= 1
-
-        monkeypatch.setattr(mod, name, paused)
-    with rec:
-        run()
-    return rec
-
-
 def _rollup_run(batches):
     eng = RollupEngine(*SUITE_CONFIG, device="cpu")
     packed = eng.pack(batches["l2"].get_input())
@@ -168,7 +112,7 @@ def test_capture_safety_mirror(monkeypatch, batches, withdraw_lanes, path):
     run = (_rollup_run(batches) if path == "rollup_main"
            else _withdraw_run(withdraw_lanes))
     run()  # warm-up: the tables and constants are built here
-    rec = _record(monkeypatch, run)
+    rec = record_ops(monkeypatch, run)
     print(f"{path}: {rec.count} aten ops a batch outside the plain versions "
           "of K1-K4")
     assert rec.count > 1000

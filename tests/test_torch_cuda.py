@@ -2,9 +2,10 @@
 the suite's batches through `RollupEngine` on `cuda`, withdrawals through
 `WithdrawEngine` on `cuda`, `trace` on `cuda` against `trace` on the
 CPU, the sharded path in a world of one over NCCL against
-`run_packed`, and the engines' captured CUDA graphs (`engine/aot.py`)
-against their eager route and the builder. These tests need a CUDA device and skip without one. They import no JAX, so they also run on a
-machine that has none:
+`run_packed`, and the engines' captured CUDA graphs (`engine/aot.py`),
+the debug routes' among them, against their eager route and the builder.
+These tests need a CUDA device and skip without one. They import no JAX,
+so they also run on a machine that has none:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
         -m gpu tests/test_torch_cuda.py
@@ -372,3 +373,112 @@ def test_withdraw_widths_share_one_graph_pool(cuda):
         hashes, ok = engine.run(batch)
         assert ok.all() and hashes == [hash_inputs_withdraw(d) for d in batch]
     assert narrow.replays == wide.replays == 2
+
+
+def test_captured_debug_routes_equal_eager_and_share_one_pool(cuda):
+    """`trace_call`, `debug_call` and `check_batch`'s compiled check on
+    batches A, B, A and a tampered A: the first op by op, B captured, the
+    rest replayed; each graph's kernel nodes are the first call's wrapper
+    launches, every output equals the eager route's, the tampered lane is
+    named through the graph. The engine's three graphs lie in one pool and
+    replay in turns, each exact."""
+    from circuits_tpu_torch.r1cs import checker
+
+    engine = RollupEngine(*SUITE_CONFIG, device=cuda)
+    bbs = suite_batches()
+    a, b = bbs["l2"].get_input(), bbs["deposit"].get_input()
+    bad = dict(a)
+    bad["s"] = list(a["s"])
+    bad["s"][0] = (bad["s"][0] + 1) % scalar.P
+    pa, pb, pbad = (engine.pack(x) for x in (a, b, bad))
+    checker._CALLS.pop((SUITE_CONFIG, cuda), None)  # a fresh check
+    check = checker.compiled_check(SUITE_CONFIG, cuda)
+    # "cuda" without an index is the same card, so the same check
+    assert checker.compiled_check(SUITE_CONFIG, "cuda") is check
+    n_tx, n_levels, _, max_fee_tx = SUITE_CONFIG
+    routes = ((engine.trace_call, engine._trace_lanes_eager),
+              (engine.debug_call, engine._full_debug_eager),
+              (check, lambda p: checker.check_masks(p, n_tx, n_levels,
+                                                    max_fee_tx)))
+    got = []
+    for call, eager in routes:
+        kernels.reset_launches()
+        first = call(pa)
+        launches = dict(kernels.launches)
+        kernels.reset_launches()
+        outs = [call(p) for p in (pb, pa, pbad)]
+        assert not any(kernels.launches.values()), kernels.launches
+        assert call.counts == launches and call.replays == 3
+        for out, p in zip([first] + outs, (pa, pb, pa, pbad)):
+            assert_same(out, eager(p))
+        got.append(outs[1])
+    res = checker.check_batch(pbad, *SUITE_CONFIG)
+    assert np.flatnonzero(~res["lane_ok"]).tolist() == [0]
+    assert check.replays == 4
+    lanes, lane_ok, dout, ok = engine._full_debug(a)
+    assert bool(ok) and engine.unpack_outputs(dout)["hash_global_inputs"] \
+        == bbs["l2"].get_hash_inputs()
+    main = engine.run_packed(pa)  # op by op: the main call's first batch
+    engine.compile()
+    refs = {"main": main, "debug": got[1], "trace": got[0]}
+    runs = {"main": lambda: engine.run_packed(pa),
+            "debug": lambda: engine.debug_call(pa),
+            "trace": lambda: engine.trace_call(pa)}
+    for name in ("main", "debug", "trace", "main"):
+        assert_same(runs[name](), refs[name], name)
+    pools = {c.graph.pool() for c in (engine.call, engine.trace_call,
+                                       engine.debug_call)}
+    assert len(pools) == 1
+
+
+def test_captured_withdraw_debug_equals_eager(cuda):
+    n_levels = 16
+    rng = random.Random(33)
+    good = withdraw_cases.exit_tree_batch(rng, 33, n_levels)
+    bad = list(good)
+    bad[4] = withdraw_cases.tamper(good[4], "balance", n_levels)
+    engine = WithdrawEngine(n_levels, device=cuda)
+    kernels.reset_launches()
+    runs = [engine.run_debug(good)]
+    launches = dict(kernels.launches)
+    kernels.reset_launches()
+    runs += [engine.run_debug(x) for x in (bad, good)]
+    call = engine.debug_call_for(33)
+    assert not any(kernels.launches.values()) and call.replays == 2
+    assert call.counts == launches and call.pool is engine._pool
+    for (h, ok, dbg), batch in zip(runs, (good, bad, good)):
+        assert h == [hash_inputs_withdraw(d) for d in batch]
+        eh, eok, edbg = engine.run_packed_eager(engine.pack(batch),
+                                                debug=True)
+        assert ok.tolist() == fr.to_numpy(eok).tolist()
+        assert_same(dbg, edbg)
+    assert np.flatnonzero(~runs[1][1]).tolist() == [4]
+
+
+def test_captured_call_clones_aliased_leaves_on_cuda(cuda):
+    """On the card, one tensor twice, a static input passed through and
+    leaves that are no tensors: every returned tensor is a clone of its
+    own, right after later batches were loaded and replayed."""
+    from circuits_tpu_torch.engine import aot
+
+    def fn(d):
+        y = d["x"] * 2
+        return {"same": y, "again": y, "input": d["x"], "n": 3,
+                "none": None}
+
+    call = aot.CapturedCall(fn, {"x": ((16, 3), torch.int64)}, cuda)
+    outs = [(i, call({"x": torch.full((16, 3), i, device=cuda)}))
+            for i in (1, 2, 1, 3)]
+    # on the card the capture's call replays too
+    assert call.replays == 3 and call.graph is not None
+    seen = set()
+    for i, out in outs:
+        assert (out["n"], out["none"]) == (3, None)
+        assert torch.equal(out["same"], torch.full((16, 3), 2 * i,
+                                                   device=cuda))
+        assert torch.equal(out["again"], out["same"])
+        assert torch.equal(out["input"], torch.full((16, 3), i, device=cuda))
+        ptrs = {out[k].data_ptr() for k in ("same", "again", "input")}
+        assert len(ptrs) == 3 and not ptrs & seen
+        assert call.inputs["x"].data_ptr() not in ptrs
+        seen |= ptrs

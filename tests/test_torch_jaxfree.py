@@ -4,7 +4,9 @@ can be imported (the card's machine has no JAX). A subprocess blocks every
 `circuits_tpu_torch`, builds the suite's (3, 16, 2, 2) batches with the
 port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
 outputs against the builder, reads its signals (`trace`), exports its
-witness vector and checks it with the port's pure-Python checker, runs a
+witness vector and checks it with the port's pure-Python checker, calls
+each compiled debug route a second time (its capture: `get_signal`, the
+export, `check_batch` of a tampered batch, Withdraw's `run_debug`), runs a
 batch of withdrawals through `WithdrawEngine` against the builder and
 through a `CapturedCall` of the compiled engines' module (`engine/aot.py`,
 whose input shapes it also holds), runs both plain versions of the full-round experiment against its bigint mirror, and
@@ -51,6 +53,7 @@ SCRIPT = BLOCK + textwrap.dedent("""
     from circuits_tpu_torch.engine import aot, witness_vector
     from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
     from circuits_tpu_torch.field import fr
+    from circuits_tpu_torch.r1cs import checker
     from circuits_tpu_torch.r1cs.checker import check_batch
     from circuits_tpu_torch.r1cs.witness_check import verify_witness
     from circuits_tpu_torch.scripts import withdraw_cases
@@ -77,6 +80,15 @@ SCRIPT = BLOCK + textwrap.dedent("""
     assert values[1] == want["hash_global_inputs"]
     assert verify_witness(dict(zip(names, values)), *SUITE_CONFIG)["ok"]
     assert check_batch(engine.pack(inp), *SUITE_CONFIG)["ok"]
+    # the second call of each debug route is its capture
+    assert engine.get_signal(inp, "states.key1[0]") == 256
+    assert witness_vector.export_witness(engine, inp) == (names, values)
+    bad = dict(inp, s=[(inp["s"][0] + 1) % fr.P] + list(inp["s"][1:]))
+    assert check_batch(engine.pack(bad), *SUITE_CONFIG)[
+        "lane_ok"].tolist() == [False, True, True]
+    assert all(c.outputs is not None for c in (
+        engine.trace_call, engine.debug_call,
+        checker.compiled_check(SUITE_CONFIG, "cpu")))
     sharded = make_sharded_rollup_main(make_tx_mesh(1, device="cpu"),
                                        *SUITE_CONFIG)
     sout, sok = sharded(engine.pack(inp))
@@ -88,6 +100,11 @@ SCRIPT = BLOCK + textwrap.dedent("""
     hashes, ok = WithdrawEngine(8, device="cpu").run(lanes)
     assert ok.tolist() == [True] * 5 + [False]
     assert hashes == [hash_inputs_withdraw(d) for d in lanes]
+    wdebug = WithdrawEngine(8, device="cpu")
+    for _ in range(2):  # op by op, then the capture
+        h, ok, dbg = wdebug.run_debug(lanes)
+        assert h == hashes and ok.tolist() == [True] * 5 + [False]
+    assert wdebug.debug_calls[len(lanes)].outputs is not None
     assert {k: (tuple(v.shape), v.dtype) for k, v in
             engine.pack(inp).items()} == aot.rollup_input_shapes(*SUITE_CONFIG)
     wengine = WithdrawEngine(8, device="cpu")
