@@ -87,7 +87,12 @@ Phases (any failure raises, and the exit code is then non-zero):
     last, Withdraw's `run_debug` on phase 8's 32768 lanes: op by op, the
     capture at a batch with 64 lanes tampered (exactly those refused
     through the graph, every hash the builder's), hash, ok and state_hash
-    replayed equal to the eager route, both routes timed.
+    replayed equal to the eager route, both routes timed; then the check
+    at maxFeeTx = 1 (RollupMain(2, 16, 1, 1)), a fresh compiled check on a
+    valid batch and on one with the fee recipient's balance3 + 7 (op by
+    op, the capture, both replayed and timed), `fee_ok` [True] and
+    [False] of shape (1,), and `check_batch_sharded` in a world of one
+    over NCCL giving the same masks;
 10. the modules with no kernel of their own, on the card: the BabyJubJub
     point operations (`scalar_mul_base8` and `scalar_mul_var` of BASE8 on
     1024 random scalars below the subgroup order, `points_equal` on every
@@ -102,7 +107,8 @@ Phases (any failure raises, and the exit code is then non-zero):
     side by side), each exit code and the hash `input` printed held; then
     `compile 2048 32 256 64` alone, whose kernel library, capture and first
     replay give the time a fresh process takes to its first witness; the
-    seconds of each verb;
+    seconds of each verb (not `audit`: host text work, nothing on the
+    card);
 12. the tx-lane sharded path (`circuits_tpu_torch/parallel`) on phase 4's
     batch: a world of one over NCCL in this process, its outputs limb-equal
     to `run_packed`, the hash to the builder's, every kernel of the main
@@ -161,8 +167,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from circuits_tpu_torch import kernels  # noqa: E402
 from circuits_tpu_torch.engine import witness_vector  # noqa: E402
-from circuits_tpu_torch.engine.witness import (RollupEngine,  # noqa: E402
-                                               WithdrawEngine)
+from circuits_tpu_torch.engine.witness import (  # noqa: E402
+    RollupEngine, WithdrawEngine, pack_rollup_inputs)
 from circuits_tpu_torch.builder import babyjub, float40  # noqa: E402
 from circuits_tpu_torch.builder.account import HermezAccount  # noqa: E402
 from circuits_tpu_torch.builder.rollup_db import RollupDB  # noqa: E402
@@ -178,7 +184,8 @@ from circuits_tpu_torch.ops import (babyjubjub, poseidon,  # noqa: E402
 from circuits_tpu_torch.parallel import (  # noqa: E402
     make_sharded_rollup_main, make_tx_mesh)
 from circuits_tpu_torch.r1cs import checker  # noqa: E402
-from circuits_tpu_torch.r1cs.checker import check_batch  # noqa: E402
+from circuits_tpu_torch.r1cs.checker import (  # noqa: E402
+    check_batch, check_batch_sharded)
 from circuits_tpu_torch.r1cs.witness_check import (  # noqa: E402
     verify_withdraw_witness, verify_witness)
 from circuits_tpu_torch.scripts import (eddsa_cases,  # noqa: E402
@@ -1256,6 +1263,75 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
             "withdraw_debug": call.counts}
 
 
+FEE1_CONFIG = (2, 16, 1, 1)  # maxFeeTx = 1: the fee chain has no im pin
+
+
+def check_fee_of_one(dev, card):
+    """Phase 9's check at maxFeeTx = 1, on a valid RollupMain(2, 16, 1, 1)
+    batch and on the same batch with the fee recipient's balance3 + 7:
+    `check_batch`'s compiled check (a fresh one: the valid batch op by op,
+    the tampered one captured, then both replayed, each replay timed) must
+    give `fee_ok` [True], then [False], of shape (1,), and every lane True;
+    then `check_batch_sharded` in a world of one over NCCL on both batches
+    must give the same masks. A mismatch raises."""
+    bb = production_batch(*FEE1_CONFIG)
+    valid = bb.get_input()
+    bad = dict(valid, balance3=[valid["balance3"][0] + 7])
+    want = {"valid": [True], "tampered": [False]}
+    packed = {"valid": pack_rollup_inputs(valid, *FEE1_CONFIG, device=dev),
+              "tampered": pack_rollup_inputs(bad, *FEE1_CONFIG, device=dev)}
+    call = checker.compiled_check(FEE1_CONFIG, dev)
+    assert not call.warm and call.outputs is None, "the check is not fresh"
+
+    def checked(case, route, res):
+        assert res["fee_ok"].shape == (1,), (route, case, res["fee_ok"])
+        assert res["fee_ok"].tolist() == want[case], (route, case, res)
+        assert res["lane_ok"].tolist() == [True] * FEE1_CONFIG[0], \
+            (route, case, res)
+        assert res["ok"] is (case == "valid"), (route, case, res)
+        return res
+
+    secs, got = {}, {}
+    for step, case in (("op by op", "valid"), ("capture", "tampered"),
+                       ("replay", "valid"), ("replay", "tampered")):
+        sync()
+        t0 = time.perf_counter()
+        res = check_batch(packed[case], *FEE1_CONFIG)
+        secs[f"{step} {case}"] = time.perf_counter() - t0
+        got[case] = checked(case, "check_batch", res)
+    # the capture replays once, then two replays
+    assert call.outputs is not None and call.replays == 3, call.replays
+    replays = route_times(lambda: check_batch(packed["valid"],
+                                              *FEE1_CONFIG))[0]
+    print(f"check_batch at RollupMain{FEE1_CONFIG}: fee_ok [True] on the "
+          f"valid batch, [False] with balance3 + 7, shape (1,), every lane "
+          f"True; " + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+          + " (capture: " + ", ".join(f"{k} {v:.3f} s"
+                                       for k, v in call.seconds.items())
+          + f", {call.nodes} nodes); replay median "
+          f"{statistics.median(replays):.4f} s over 5 "
+          f"{['%.4f' % t for t in replays]}, host reads included; on {card}",
+          flush=True)
+    mesh = make_tx_mesh(1, device=dev)
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        for case in want:
+            sync()
+            t0 = time.perf_counter()
+            res = checked(case, "check_batch_sharded", check_batch_sharded(
+                mesh, packed[case], *FEE1_CONFIG))
+            secs[case] = time.perf_counter() - t0
+            for mask in ("lane_ok", "fee_ok"):
+                assert res[mask].tolist() == got[case][mask].tolist(), \
+                    (case, mask)
+    finally:
+        dist.destroy_process_group()
+    print(f"check_batch_sharded at RollupMain{FEE1_CONFIG}, a world of one "
+          f"over NCCL (op by op): the same masks on both batches, valid "
+          f"{secs['valid']:.3f} s, tampered {secs['tampered']:.3f} s; on "
+          f"{card}", flush=True)
+
+
 def check_new_modules(dev, rng):
     """Phase 10: the public point operations and the 8-bit-limb Poseidon
     permutation on the card."""
@@ -1303,7 +1379,8 @@ def check_cli(card):
     """Phase 11: every CLI verb that runs the engine, each in its own
     process on the card, in a temporary directory. The five verbs that only
     read `inputs-32.json` run side by side; `compile`, the warm start, runs
-    alone."""
+    alone. `audit` is left out: it reads circom sources and prints text on
+    the host, and does nothing on the card."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     params = ["32", "16", "8", "64"]
@@ -1853,6 +1930,7 @@ def main() -> None:
           "account pays the one 3 on, 777 a transfer", flush=True)
     debug_counts = check_debug_paths(engine, inp, bad, out, bb, bb_b,
                                      wengine, wlanes, wpacked, card)
+    check_fee_of_one(dev, card)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 10 - the modules with no kernel of their own

@@ -1,0 +1,1 @@
+from . import scalar, fr  # noqa: F401

@@ -51,9 +51,11 @@ def _fee_ok(packed: dict) -> torch.Tensor:
     # per-slot fee-chain integrity: slot j's output root must equal
     # imStateRootFee[j] (the last slot's root is the batch output and has
     # no im pin) -- keeps the mask slot-local so a corrupted fee slot is
-    # attributable (src/rollup-main.circom:419-424)
+    # attributable (src/rollup-main.circom:419-424); the pad is one slot
+    # even at maxFeeTx = 1, where chain_ok is empty
     chain_ok = fr.eq(fee_root[:, :-1], packed["im_state_root_fee"])
-    return fee_ok & torch.cat([chain_ok, torch.ones_like(chain_ok[:1])])
+    pad = torch.ones(1, dtype=torch.bool, device=chain_ok.device)
+    return fee_ok & torch.cat([chain_ok, pad])
 
 
 def check_masks(packed: dict, n_tx: int, n_levels: int,

@@ -23,10 +23,10 @@ tools/build-circuit.js and tools/generate-input.js):
   trace   input.json [params] [signal]   -> printSignals equivalent: the
                                             named-signal catalog (or one
                                             signal) per tx lane
-  audit                                  -> not in the port: it parses the
-                                            reference's circom sources,
-                                            which the repository does not
-                                            hold
+  audit                                  -> r1cs residual audit report
+                                            (r1cs/audit.py: the reference's
+                                            circom sources against the
+                                            port's residuals; no device)
   zkey / solidity                        -> out of scope (documented):
                                             Groth16 proving/verifier export
                                             stays with snarkjs
@@ -274,10 +274,9 @@ def cmd_trace(args, device):
 
 
 def cmd_audit(_args, _device):
-    raise SystemExit(
-        "'audit' is not in the port: the residual audit parses the "
-        "reference's circom sources, which this repository does not hold "
-        "(the JAX package's r1cs/audit.py reads them from outside it)")
+    from ..r1cs.audit import report
+
+    print(report())
 
 
 def cmd_out_of_scope(verb):

@@ -2,9 +2,16 @@
 suite's config (3, 16, 2, 2): a valid batch, a tampered tx lane, a
 tampered fee slot and the valid batch again give the same per-lane and
 per-slot masks, and the masks name the lane and the slot that were
-tampered. Exact. The four go in that order through one compiled check
+tampered. Then one case for each residual that the port writes in
+another form than the JAX package (`r1cs/audit.py`: rollup-main.circom
+:215, :263, :387, rollup-tx.circom:259 and the EdDSA identity), each a
+batch tampered so that the residual refuses a lane, and the valid batch
+with a transfer to a BabyJubJub address that :259 needs. Exact. The
+cases go in that order through one compiled check
 (`checker.compiled_check`): the first runs op by op, the second is the
-capture (on the CPU a plain call), the last two are replays."""
+capture (on the CPU a plain call), the rest are replays."""
+
+import copy
 
 import numpy as np
 import pytest
@@ -12,23 +19,84 @@ import torch
 
 from circuits_tpu.engine.witness import pack_rollup_inputs as j_pack
 from circuits_tpu.r1cs.checker import check_batch as j_check_batch
+from circuits_tpu_torch.builder.account import HermezAccount
+from circuits_tpu_torch.builder.babyjub import sign_poseidon
 from circuits_tpu_torch.engine.aot import rollup_input_shapes
 from circuits_tpu_torch.engine.witness import pack_rollup_inputs
+from circuits_tpu_torch.ops.poseidon_constants import poseidon_py
 from circuits_tpu_torch.r1cs import checker
 from circuits_tpu_torch.r1cs.checker import check_batch
 
-from torch_compare import SUITE_CONFIG, suite_batches
+from torch_compare import SUITE_CONFIG, suite_batches, to_bjj_batch
 
-# case -> (input key, index, change, lanes refused, fee slots refused)
+
+def bump(key, index, delta):
+    """A tamper: the input `key` at `index` (an int, or a tuple into a
+    nested list) plus `delta`."""
+    index = index if isinstance(index, tuple) else (index,)
+
+    def tamper(inp):
+        inp[key] = copy.deepcopy(inp[key])
+        row = inp[key]
+        for i in index[:-1]:
+            row = row[i]
+        row[index[-1]] += delta
+    return tamper
+
+
+def flip_to_bjj_sign(inp):
+    """Lane 0's transfer to a BabyJubJub address with toBjjSign flipped in
+    txCompressedData and txCompressedDataV2, and signed anew by its
+    sender: the signature and the data hold, and only the receiver's sign
+    (rollup-tx.circom:259) disagrees."""
+    tcd = inp["txCompressedData"][0] ^ (1 << 224)
+    inp["txCompressedData"] = [tcd] + list(inp["txCompressedData"][1:])
+    inp["txCompressedDataV2"] = [inp["txCompressedDataV2"][0] ^ (1 << 216)] \
+        + list(inp["txCompressedDataV2"][1:])
+    element1 = (inp["toEthAddr"][0] | inp["amountF"][0] << 160
+                | inp["maxNumBatch"][0] << 200)
+    h = poseidon_py([tcd, element1, inp["toBjjAy"][0],
+                     inp["rqTxCompressedDataV2"][0], inp["rqToEthAddr"][0],
+                     inp["rqToBjjAy"][0]])
+    sig = sign_poseidon(HermezAccount(1).private_key, h)
+    for key, v in (("s", sig["S"]), ("r8x", sig["R8"][0]),
+                   ("r8y", sig["R8"][1])):
+        inp[key] = [v] + list(inp[key][1:])
+
+
+# case -> (batch, tamper, lanes refused, fee slots refused); "l2" is the
+# suite's L2 batch, "to_bjj" `torch_compare.to_bjj_batch`
 CASES = {
-    "valid": (None, None, 0, [], []),
+    "valid": ("l2", None, [], []),
     # the sender's balance no longer matches its leaf
-    "tampered lane": ("balance1", 1, 7, [1], []),
+    "tampered lane": ("l2", bump("balance1", 1, 7), [1], []),
     # the fee recipient's leaf no longer matches the fee tree's root
-    "tampered fee slot": ("balance3", 0, 1, [], [0]),
+    "tampered fee slot": ("l2", bump("balance3", 0, 1), [], [0]),
     # the first batch again, through the replay
-    "valid again": (None, None, 0, [], []),
+    "valid again": ("l2", None, [], []),
+    # rollup-main.circom:215: a fromBjjCompressed "bit" of 2
+    "bjj bit of 2": ("l2", bump("fromBjjCompressed", (0, 0), 2), [0], []),
+    # :263: the im chain says lane 0 is on chain, lane 0 says it is not
+    "im onChain flipped": ("l2", bump("imOnChain", 0, 1), [0], []),
+    # :387: lane 0's accumulated fee pin, which lane 1 also reads
+    "im acc fee + 1": ("l2", bump("imAccFeeOut", (0, 0), 1), [0, 1], []),
+    # the batch of the next case, untampered
+    "to bjj valid": ("to_bjj", None, [], []),
+    # rollup-tx.circom:259
+    "to bjj sign flipped": ("to_bjj", flip_to_bjj_sign, [0], []),
+    # the EdDSA identity: lane 0's signature scalar
+    "signature corrupted": ("l2", bump("s", 0, 1), [0], []),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: the plain versions'
+    tensors are tiny, and more threads only cost time here."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -38,13 +106,13 @@ def checked():
     since the compiled checks live as long as the process."""
     key = (SUITE_CONFIG, torch.device("cpu"))
     checker._CALLS.pop(key, None)
-    base = suite_batches()["l2"].get_input()
+    bases = {"l2": suite_batches()["l2"].get_input(),
+             "to_bjj": to_bjj_batch().get_input()}
     res, states = {}, []
-    for case, (key_, i, delta, _, _) in CASES.items():
-        inp = dict(base)
-        if key_ is not None:
-            inp[key_] = list(base[key_])
-            inp[key_][i] += delta
+    for case, (batch, tamper, _, _) in CASES.items():
+        inp = dict(bases[batch])
+        if tamper is not None:
+            tamper(inp)
         got = check_batch(pack_rollup_inputs(inp, *SUITE_CONFIG,
                                              device="cpu"), *SUITE_CONFIG)
         call = checker._CALLS[key]
@@ -68,7 +136,7 @@ def test_check_batch_matches_jax(checked, case, mask):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_check_batch_names_what_was_tampered(checked, case):
     got = checked[0][case][0]
-    _, _, _, lanes, slots = CASES[case]
+    _, _, lanes, slots = CASES[case]
     assert np.flatnonzero(~got["lane_ok"]).tolist() == lanes
     assert np.flatnonzero(~got["fee_ok"]).tolist() == slots
     assert got["ok"] == (not lanes and not slots)
@@ -76,11 +144,12 @@ def test_check_batch_names_what_was_tampered(checked, case):
 
 
 def test_check_batch_runs_through_one_compiled_check(checked):
-    """Op by op, the capture, two replays; one `CapturedCall` a circuit and
-    device, whose device part is `check_masks` at the packed shapes."""
+    """Op by op, the capture, then a replay a case; one `CapturedCall` a
+    circuit and device, whose device part is `check_masks` at the packed
+    shapes."""
     res, states = checked
-    assert states == [(True, False, 0), (True, True, 0), (True, True, 1),
-                      (True, True, 2)]
+    assert states == [(True, False, 0), (True, True, 0)] + [
+        (True, True, i) for i in range(1, len(CASES) - 1)]
     call = checker.compiled_check(SUITE_CONFIG, "cpu")
     assert call is checker._CALLS[SUITE_CONFIG, torch.device("cpu")]
     assert call.shapes == rollup_input_shapes(*SUITE_CONFIG)

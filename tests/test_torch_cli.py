@@ -4,9 +4,10 @@ the JAX package's CLI (`circuits_tpu.tools.cli`) at test_cli.py's shape
 `config.json` and `inputs-4.json` bytes and printed hash, the same
 `out.json` apart from the time, the same `.wtns` and `.sym.json` bytes, the
 same `trace` JSON (whole catalog and one signal), the same exit codes of
-`check` on a sound and a tampered batch and of `zkey`. Neither side's
-`audit` runs; the port's refuses with a message. Without `--device`, an
-engine verb asks for the card and raises where there is none."""
+`check` on a sound and a tampered batch and of `zkey`, the same `audit`
+report on a stand-in for the reference's circom sources and without
+them. Without `--device`, an engine verb asks for the card and raises
+where there is none."""
 
 import contextlib
 import io
@@ -17,8 +18,12 @@ from pathlib import Path
 import pytest
 import torch
 
+from circuits_tpu.r1cs import audit as jaudit
 from circuits_tpu.tools import cli as jcli
+from circuits_tpu_torch.r1cs import audit
 from circuits_tpu_torch.tools import cli
+
+from torch_compare import reference_tree
 
 PARAMS = ["4", "16", "4", "2"]  # nTx nLevels maxL1Tx maxFeeTx
 CPU = ["--device", "cpu"]
@@ -154,9 +159,16 @@ def test_zkey_is_out_of_scope_on_both(runs):
     assert "out of scope" in str(runs[0]["zkey"][0])
 
 
-def test_audit_is_refused_with_a_reason(capsys):
-    code, _ = _call(cli.main, ["audit"], capsys)
-    assert "circom sources" in str(code)
+def test_audit_prints_what_the_jax_cli_prints(tmp_path, monkeypatch,
+                                              capsys):
+    tree = reference_tree(tmp_path / "src", jaudit.MANIFEST)
+    for root, verdict in ((tree, "audit: OK"),
+                          (tmp_path / "absent", "audit: FAILED")):
+        for mod in (audit, jaudit):
+            monkeypatch.setattr(mod, "REF_SRC", root)
+        code, out = _call(cli.main, ["audit"], capsys)
+        assert (code, out) == _call(jcli.main, ["audit"], capsys)
+        assert code == 0 and verdict in out, out
 
 
 def test_compile_on_cpu(tmp_path, capsys, monkeypatch):

@@ -1,7 +1,8 @@
 """The port stands alone: it runs where neither JAX nor the JAX package
 can be imported (the card's machine has no JAX). A subprocess blocks every
 `jax*` and `circuits_tpu` import with a meta-path finder, imports
-`circuits_tpu_torch`, builds the suite's (3, 16, 2, 2) batches with the
+`circuits_tpu_torch` and the engine package's re-exports, prints the
+residual audit's report, builds the suite's (3, 16, 2, 2) batches with the
 port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
 outputs against the builder, reads its signals (`trace`), exports its
 witness vector and checks it with the port's pure-Python checker, calls
@@ -50,10 +51,11 @@ SCRIPT = BLOCK + textwrap.dedent("""
     import random
 
     from circuits_tpu_torch.builder.withdraw_utils import hash_inputs_withdraw
+    from circuits_tpu_torch.engine import RollupEngine as Exported
     from circuits_tpu_torch.engine import aot, witness_vector
     from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
     from circuits_tpu_torch.field import fr
-    from circuits_tpu_torch.r1cs import checker
+    from circuits_tpu_torch.r1cs import audit, checker
     from circuits_tpu_torch.r1cs.checker import check_batch
     from circuits_tpu_torch.r1cs.witness_check import verify_witness
     from circuits_tpu_torch.scripts import withdraw_cases
@@ -66,6 +68,8 @@ SCRIPT = BLOCK + textwrap.dedent("""
     from circuits_tpu_torch.scripts import multihost_worker  # noqa: F401
     from torch_compare import SUITE_CONFIG, oracle_outputs, suite_batches
 
+    assert Exported is RollupEngine
+    assert audit.report().startswith("reference constraint sites: ")
     engine = RollupEngine(*SUITE_CONFIG, device="cpu")
     for name, bb in suite_batches().items():
         out, ok = engine.run(bb.get_input())

@@ -140,3 +140,66 @@ def assert_same(got, want, what=""):
         g, w = g.astype(np.int64), w.astype(np.int64)
     assert g.shape == w.shape, (what, g.shape, w.shape)
     assert np.array_equal(g, w), what
+
+
+def to_bjj_batch():
+    """One more batch at SUITE_CONFIG, for the residuals of a transfer to
+    a BabyJubJub address (the reference's test/rollup-main.test.js:753-817):
+    two deposits, a2's account made with the null eth address, then lane 0
+    a transfer from a1 to a2's key (toIdx 0, toEthAddr the null address,
+    toBjjAy / toBjjSign a2's), lane 1 an exit, lane 2 a NOP, one fee
+    token. The port's own builder."""
+    from circuits_tpu_torch.builder import float40
+    from circuits_tpu_torch.builder.account import HermezAccount
+    from circuits_tpu_torch.builder.rollup_db import RollupDB
+    from circuits_tpu_torch.builder.state_utils import Constants
+
+    a1, a2 = HermezAccount(1), HermezAccount(2)
+    db = RollupDB()
+    dep = db.build_batch(*SUITE_CONFIG)
+    for acc, eth in ((a1, a1.ethAddr), (a2, Constants.nullEthAddr)):
+        dep.add_tx(dict(fromIdx=0, loadAmountF=float40.fix2float(1000),
+                        tokenID=1, fromBjjCompressed=acc.bjjCompressed,
+                        fromEthAddr=eth, toIdx=0, onChain=True))
+    dep.build()
+    db.consolidate(dep)
+    bb = db.build_batch(*SUITE_CONFIG)
+    bb.add_token(1)
+    bb.add_fee_idx(256)
+    tx = dict(fromIdx=256, toIdx=Constants.nullIdx,
+              toEthAddr=Constants.nullEthAddr, toBjjAy=a2.ay,
+              toBjjSign=a2.sign, tokenID=1, amount=150, userFee=126,
+              nonce=0, onChain=0)
+    tx2 = dict(fromIdx=257, toIdx=Constants.exitIdx, tokenID=1, amount=100,
+               userFee=68, nonce=0, onChain=0)
+    a1.sign_tx(tx)
+    a2.sign_tx(tx2)
+    bb.add_tx(tx)
+    bb.add_tx(tx2)
+    bb.build()
+    return bb
+
+
+def reference_tree(root, keys):
+    """A stand-in for the reference's circom sources in directory `root`:
+    for each site key "file.circom:line" of `keys`, that file holds a
+    `===` line at exactly that line and comment lines elsewhere; the first
+    rollup-tx.circom site is a `ForceEqualIfEnabled()` instantiation
+    instead, as the reference writes that bank. Returns `root`."""
+    sites = {}
+    for key in keys:
+        name, line = key.rsplit(":", 1)
+        sites.setdefault(name, set()).add(int(line))
+    feq = min(sites.get("rollup-tx.circom", {0}))
+    root.mkdir(parents=True, exist_ok=True)
+    for name, lines in sites.items():
+        text = []
+        for i in range(1, max(lines) + 1):
+            if i not in lines:
+                text.append(f"// {name} line {i}")
+            elif name == "rollup-tx.circom" and i == feq:
+                text.append("    component feq = ForceEqualIfEnabled();")
+            else:
+                text.append(f"    a{i} === b{i};")
+        (root / name).write_text("\n".join(text) + "\n")
+    return root
