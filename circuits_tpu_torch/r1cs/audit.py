@@ -48,9 +48,11 @@ import re
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-# the reference's circom sources, in a checkout of the reference beside
-# this repository (the JAX package's REF_SRC names the same directory)
-REF_SRC = REPO.parent / "reference" / "src"
+# the reference's circom sources, read from inside the repository only
+# (src/*.circom and src/lib/*.circom); the repository does not hold them
+# yet, so the audit names every site dead, as the JAX audit does where its
+# directory is absent
+REF_SRC = REPO / "reference" / "src"
 
 # site key -> (kind, port file, anchor substring or justification)
 MANIFEST = {

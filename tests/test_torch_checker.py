@@ -27,7 +27,8 @@ from circuits_tpu_torch.ops.poseidon_constants import poseidon_py
 from circuits_tpu_torch.r1cs import checker
 from circuits_tpu_torch.r1cs.checker import check_batch
 
-from torch_compare import SUITE_CONFIG, suite_batches, to_bjj_batch
+from torch_compare import (SUITE_CONFIG, one_thread,  # noqa: F401
+                           suite_batches, to_bjj_batch)  # one_thread: autouse
 
 
 def bump(key, index, delta):
@@ -87,16 +88,6 @@ CASES = {
     # the EdDSA identity: lane 0's signature scalar
     "signature corrupted": ("l2", bump("s", 0, 1), [0], []),
 }
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while this module runs: the plain versions'
-    tensors are tiny, and more threads only cost time here."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -4,15 +4,18 @@ port's `check_batch` (its compiled check: op by op, then the capture),
 `RollupEngine(..., device="cpu").run` against the JAX package's
 `check_batch` and `RollupEngine.run`, at RollupMain(2, 16, 1, 1) on a
 valid batch and on the same batch with the fee recipient's balance3 + 7.
-`fee_ok` has one slot, True on the valid batch and False on the tampered
-one; `ok`, `lane_ok` and `fee_ok` equal JAX's. Exact. A file of its own,
-so that its JAX compiles at this shape get a worker of their own."""
+The batch is `chip_smoke.production_batch(2, 16, 1, 1)`, the one that
+`chip_smoke.py` checks on the card. `fee_ok` has one slot, True on the
+valid batch and False on the tampered one; `ok`, `lane_ok` and `fee_ok`
+equal JAX's. Exact. A file of its own, so that its JAX compiles at this
+shape get a worker of their own."""
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from chip_smoke import FEE1_CONFIG as CONFIG, production_batch
 from circuits_tpu.engine.witness import RollupEngine as JRollupEngine
 from circuits_tpu.engine.witness import pack_rollup_inputs as j_pack
 from circuits_tpu.r1cs.checker import check_batch as j_check_batch
@@ -22,49 +25,10 @@ from circuits_tpu_torch.parallel import make_tx_mesh
 from circuits_tpu_torch.r1cs import checker
 from circuits_tpu_torch.r1cs.checker import check_batch, check_batch_sharded
 
-from torch_compare import oracle_outputs
+from torch_compare import one_thread, oracle_outputs  # noqa: F401
+# (one_thread: autouse)
 
-CONFIG = (2, 16, 1, 1)  # (nTx, nLevels, maxL1Tx, maxFeeTx)
 CASES = {"valid": [True], "fee slot tampered": [False]}
-
-
-def fee1_batch():
-    """Two accounts made by one deposit a batch (maxL1Tx = 1), then a
-    batch of two signed transfers between them with one fee token; the
-    port's own builder."""
-    from circuits_tpu_torch.builder import float40
-    from circuits_tpu_torch.builder.account import HermezAccount
-    from circuits_tpu_torch.builder.rollup_db import RollupDB
-
-    accounts = [HermezAccount(1), HermezAccount(2)]
-    db = RollupDB()
-    for acc in accounts:
-        bb = db.build_batch(*CONFIG)
-        bb.add_tx(dict(fromIdx=0, loadAmountF=float40.fix2float(1000),
-                       tokenID=1, fromBjjCompressed=acc.bjjCompressed,
-                       fromEthAddr=acc.ethAddr, toIdx=0, onChain=True))
-        bb.build()
-        db.consolidate(bb)
-    bb = db.build_batch(*CONFIG)
-    bb.add_token(1)
-    bb.add_fee_idx(256)
-    for i, acc in enumerate(accounts):
-        tx = dict(fromIdx=256 + i, toIdx=257 - i, tokenID=1, amount=100,
-                  userFee=126, nonce=0, onChain=0)
-        acc.sign_tx(tx)
-        bb.add_tx(tx)
-    bb.build()
-    return bb
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while this module runs: the plain versions'
-    tensors are tiny, and more threads only cost time here."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +36,7 @@ def results():
     """{case: {route: result}} of both packages; the compiled check is made
     fresh, since the compiled checks live as long as the process."""
     checker._CALLS.pop((CONFIG, torch.device("cpu")), None)
-    bb = fee1_batch()
+    bb = production_batch(*CONFIG)
     valid = bb.get_input()
     bad = dict(valid, balance3=[valid["balance3"][0] + 7])
     engine = RollupEngine(*CONFIG, device="cpu")

@@ -32,23 +32,14 @@ from circuits_tpu_torch.parallel import (make_sharded_rollup_main,
                                          tx_shardings)
 from circuits_tpu_torch.r1cs.checker import check_batch, check_batch_sharded
 
-from torch_compare import RQ_CONFIG, assert_same, rq_batches
+from torch_compare import (RQ_CONFIG, assert_same, one_thread,  # noqa: F401
+                           rq_batches)  # one_thread: autouse
 
 N_TX, N_LEVELS, MAX_L1, MAX_FEE = RQ_CONFIG
 # (first lane, lanes) cut from the full width: the second half reads lane
 # 1's rq data across the cut; the first half holds lane 1, which is not
 # the last lane of the batch though it is the last of its slice
 SLICES = [(2, 2), (0, 2)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while this module runs: the plain versions'
-    tensors are tiny, and more threads only cost time here."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -3,6 +3,7 @@ package: the same numpy inputs go to both, results come back as numpy and
 are compared exactly (all of this is integer arithmetic)."""
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -17,6 +18,17 @@ def to_np(x) -> np.ndarray:
         x = x.detach().cpu().numpy()
     x = np.asarray(x)
     return x if x.dtype == np.bool_ else x.astype(np.int64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while a module runs: the plain versions'
+    tensors are tiny, and more threads only cost time there. Autouse in
+    each module that imports it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 SUITE_CONFIG = (3, 16, 2, 2)  # (nTx, nLevels, maxL1Tx, maxFeeTx)
