@@ -1,0 +1,8 @@
+"""K1-K4's least time for the batch's circuit work over their profiled device
+time, in %."""
+
+from portbench.metrics import common
+
+
+def read(run):
+    return common.roofline_share(run, ("K1", "K2", "K3", "K4"))

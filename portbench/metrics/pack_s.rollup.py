@@ -1,0 +1,7 @@
+"""Host span around the engine's pack (RollupEngine.pack), mean seconds a call."""
+
+from portbench.metrics import common
+
+
+def read(run):
+    return common.span_mean(run, "pack")
