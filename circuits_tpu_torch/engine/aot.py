@@ -38,7 +38,7 @@ import time
 
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from ..field.fr import N_LIMBS
 
 _I64 = torch.int64
@@ -222,15 +222,25 @@ class CapturedCall:
     back out of `kernels.launches`, and a replay adds nothing to it.
     `counts` is read from the graph (`graph_kernels`): its kernel nodes by
     kernel, which must equal the wrappers' calls during the recording, else
-    RuntimeError. A replay runs `counts`; `replays` counts the replays.
+    RuntimeError. A replay runs `counts`; `replays` counts the replays, so
+    the kernels that replays launched are `counts` x `replays`.
+
+    `route` names the call in its spans (`spans.py`). A replay records
+    `aot.replay` around the whole call (the load, the replay, the clones)
+    and, where there is a graph, `aot.launch` around `graph.replay()` alone,
+    the host's submission, and the device interval `aot.graph` between two
+    timing events recorded just before and just after it on the current
+    stream: the graph's device time, with any wait for the submission.
+    Nothing is added to the graph.
 
     On the CPU there is no graph: the capture's call is a plain call of `fn`
     on the batch, whose outputs become the static outputs, and a replay a
     plain call copied into them -- the bookkeeping of the card.
     """
 
-    def __init__(self, fn, shapes: dict, device, pool=None):
+    def __init__(self, fn, shapes: dict, device, pool=None, route=""):
         self.fn = fn
+        self.route = route
         self.shapes = shapes
         self.device = pinned_device(device)
         self.pool = pool
@@ -241,6 +251,7 @@ class CapturedCall:
         self.counts = {k: 0 for k in kernels.launches}
         self.nodes = 0
         self.replays = 0
+        self._events = []  # timing event pairs, reused (spans.event_pair)
         # host seconds of the warm-up (when the capture made it), the
         # recording, the instantiation and the count of the graph's nodes
         self.seconds = {}
@@ -321,18 +332,29 @@ class CapturedCall:
         if self.graph is None:
             _copy_into(self.outputs, self.fn(self.inputs))
         else:
-            self.graph.replay()
+            start, end = spans.event_pair(self._events)
+            t = time.perf_counter_ns()
+            start.record()
+            with spans.span("aot.launch", route=self.route):
+                self.graph.replay()
+            end.record()
+            spans.device_interval("aot.graph", start, end, t,
+                                  route=self.route)
         self.replays += 1
 
     def __call__(self, packed: dict):
+        if self.outputs is not None:
+            with spans.span("aot.replay", route=self.route):
+                self.load(packed)
+                self.replay()
+                return _tree_map(torch.clone, self.outputs)
         self.load(packed)
         if not self.warm:
             out = self.fn(self.inputs)
             self.warm = True
             return _tree_map(torch.clone, out)
-        if self.outputs is None:
-            self.capture()
-            if self.graph is None:  # the CPU's capture ran this batch
-                return _tree_map(torch.clone, self.outputs)
+        self.capture()
+        if self.graph is None:  # the CPU's capture ran this batch
+            return _tree_map(torch.clone, self.outputs)
         self.replay()
         return _tree_map(torch.clone, self.outputs)

@@ -25,6 +25,15 @@ The debug routes are compiled the same way, as the JAX engines jit them:
 (`debug_call_for`); `_trace_lanes_eager`, `_full_debug_eager` and
 `run_packed_eager(debug=True)` are their op-by-op routes. An engine's
 graphs share one memory pool (`aot.graph_pool` says why that is safe).
+
+A pack runs in two stages, a producer and a consumer: on the host each
+value becomes a numpy array (limbs by `fr.pack_np`, flags, bits), and each
+array is copied to the device as soon as it is made, where the limb tables
+are then permuted to their lane-last layout. The engines record their
+spans (`spans.py`): `witness.run` around `run`, `witness.pack` around the
+pack with a child `witness.pack.h2d` around each copy to a device other
+than the CPU (counter `h2d_bytes`), and `witness.unpack` around
+`unpack_outputs`.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from .. import spans
 from ..field import fr
 from .aot import (CapturedCall, graph_pool, rollup_input_shapes,
                   withdraw_input_shapes)
@@ -84,9 +94,64 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _flags(vals, device) -> torch.Tensor:
-    return torch.tensor([int(v) for v in vals], dtype=torch.int64,
-                        device=device)
+def _limbs(values) -> np.ndarray:
+    return fr.pack_np(values).astype(np.int64)
+
+
+def _flags(vals) -> np.ndarray:
+    return np.array([int(v) for v in vals], dtype=np.int64)
+
+
+# limb tables packed (16, n, m) on the host and permuted on the device to
+# (m, 16, n): siblings (T, L+1) -> (L+1, 16, T), imAccFeeOut (T-1, F) ->
+# (F, 16, T-1)
+_LANE_LAST = ("siblings1", "siblings2", "siblings3", "siblings_state",
+              "im_acc_fee_out")
+
+
+def _to_device(arrays, device: torch.device) -> dict:
+    """The pack's second stage: each (key, host array) of the first onto
+    `device` as it comes, in its dtype and shape, then the `_LANE_LAST`
+    tables permuted there. Copying each array while it is fresh lets the
+    host reuse its memory for the next; holding them all first costs a
+    fault on every new page, each call (16 ms of a RollupMain(2048, ...)
+    pack)."""
+    out = {}
+    for k, a in arrays:
+        if device.type == "cpu":
+            out[k] = torch.from_numpy(a)
+            continue
+        with spans.span("witness.pack.h2d"):
+            out[k] = torch.from_numpy(a).to(device)
+            spans.count("h2d_bytes", a.nbytes)
+    for k in _LANE_LAST:
+        if k in out:
+            out[k] = out[k].permute(2, 0, 1).contiguous()
+    return out
+
+
+def _rollup_host(inp: dict, max_fee_tx: int):
+    """The pack's first stage for RollupMain: (key, numpy int64 array),
+    one at a time."""
+    for k in _SCALARS:
+        yield _snake(k), _limbs([inp[k]])
+    for k in _PER_TX_FIELD + _PER_FEE_FIELD:
+        yield _snake(k), _limbs(inp[k])
+    for k in _PER_TX_FLAG:
+        yield _snake(k), _flags(inp[k])
+    yield "sign3", _flags(inp["sign3"])
+    # bits: (T, 256) LSB-first lists -> (256, T)
+    bjj = np.array(inp["fromBjjCompressed"], dtype=np.int64).reshape(-1, 256)
+    yield "from_bjj_compressed", np.ascontiguousarray(bjj.T)
+    for k in ("siblings1", "siblings2", "siblings3"):
+        yield k, _limbs(inp[k])
+    yield "im_on_chain", _flags(inp["imOnChain"])
+    for k, name in _IM_FIELD.items():
+        yield name, _limbs(inp[k])
+    acc = _limbs(inp["imAccFeeOut"])
+    if acc.ndim == 2:  # T = 1: an empty chain
+        acc = acc.reshape(16, 0, max_fee_tx)
+    yield "im_acc_fee_out", acc
 
 
 def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
@@ -94,30 +159,8 @@ def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
                        device="cuda") -> dict:
     """Builder/JSON input dict -> the models' tensors on `device`."""
     device = resolve_device(device)
-    out = {}
-    for k in _SCALARS:
-        out[_snake(k)] = fr.pack([inp[k]], device)
-    for k in _PER_TX_FIELD + _PER_FEE_FIELD:
-        out[_snake(k)] = fr.pack(inp[k], device)
-    for k in _PER_TX_FLAG:
-        out[_snake(k)] = _flags(inp[k], device)
-    out["sign3"] = _flags(inp["sign3"], device)
-    # bits: (T, 256) LSB-first lists -> (256, T)
-    bjj = np.array(inp["fromBjjCompressed"], dtype=np.int64).reshape(-1, 256)
-    out["from_bjj_compressed"] = torch.from_numpy(
-        np.ascontiguousarray(bjj.T)).to(device)
-    # siblings: (T, L+1) -> (L+1, 16, T)
-    for k in ("siblings1", "siblings2", "siblings3"):
-        out[k] = fr.pack(inp[k], device).permute(2, 0, 1).contiguous()
-    out["im_on_chain"] = _flags(inp["imOnChain"], device)
-    for k, name in _IM_FIELD.items():
-        out[name] = fr.pack(inp[k], device)
-    # (T-1, F) -> (F, 16, T-1)
-    acc = fr.pack(inp["imAccFeeOut"], device)
-    if acc.dim() == 2:  # T = 1: an empty chain
-        acc = acc.reshape(16, 0, max_fee_tx)
-    out["im_acc_fee_out"] = acc.permute(2, 0, 1).contiguous()
-    return out
+    with spans.span("witness.pack"):
+        return _to_device(_rollup_host(inp, max_fee_tx), device)
 
 
 _WITHDRAW_FIELD = {"rootExit": "root_exit", "ethAddr": "eth_addr",
@@ -138,17 +181,18 @@ def pack_withdraw_inputs(inputs: list[dict], n_levels: int,
     def value(v):
         return int(str(v), 0) if isinstance(v, str) else int(v)
 
-    out = {name: fr.pack([value(d[k]) for d in inputs], device)
-           for k, name in _WITHDRAW_FIELD.items()}
-    out["sign"] = _flags([d["sign"] for d in inputs], device)
-    rows = []
-    for d in inputs:
-        sib = list(d["siblingsState"])
-        rows.append(sib + [0] * (levels - len(sib)))
-    # (B, L+1) -> (L+1, 16, B)
-    out["siblings_state"] = fr.pack(rows, device).permute(
-        2, 0, 1).contiguous()
-    return out
+    def host():
+        for k, name in _WITHDRAW_FIELD.items():
+            yield name, _limbs([value(d[k]) for d in inputs])
+        yield "sign", _flags([d["sign"] for d in inputs])
+        rows = []
+        for d in inputs:
+            sib = list(d["siblingsState"])
+            rows.append(sib + [0] * (levels - len(sib)))
+        yield "siblings_state", _limbs(rows)
+
+    with spans.span("witness.pack"):
+        return _to_device(host(), device)
 
 
 class RollupEngine:
@@ -165,11 +209,14 @@ class RollupEngine:
         self._pool = graph_pool(self.device)
         shapes = rollup_input_shapes(*self.params)
         self.call = CapturedCall(self.run_packed_eager, shapes,
-                                 self.device, pool=self._pool)
+                                 self.device, pool=self._pool,
+                                 route="rollup")
         self.trace_call = CapturedCall(self._trace_lanes_eager, shapes,
-                                       self.device, pool=self._pool)
+                                       self.device, pool=self._pool,
+                                       route="rollup.trace")
         self.debug_call = CapturedCall(self._full_debug_eager, shapes,
-                                       self.device, pool=self._pool)
+                                       self.device, pool=self._pool,
+                                       route="rollup.debug")
 
     def pack(self, inp: dict) -> dict:
         return pack_rollup_inputs(inp, *self.params, device=self.device)
@@ -195,17 +242,19 @@ class RollupEngine:
     def run(self, inp: dict):
         """inp: builder input dict. Returns (outputs dict of host ints,
         ok bool)."""
-        out, ok = self.run_packed(self.pack(inp))
-        return self.unpack_outputs(out), bool(ok)
+        with spans.span("witness.run"):
+            out, ok = self.run_packed(self.pack(inp))
+            return self.unpack_outputs(out), bool(ok)
 
     @staticmethod
     def unpack_outputs(out: dict) -> dict:
-        res = {k: fr.unpack_int(out[k]) for k in
-               ("hash_global_inputs", "new_state_root", "new_exit_root",
-                "new_last_idx")}
-        res["acc_fee_out"] = [int(v) for v in fr.unpack_np(
-            out["acc_fee_out"].movedim(1, 0))]
-        return res
+        with spans.span("witness.unpack"):
+            res = {k: fr.unpack_int(out[k]) for k in
+                   ("hash_global_inputs", "new_state_root", "new_exit_root",
+                    "new_last_idx")}
+            res["acc_fee_out"] = [int(v) for v in fr.unpack_np(
+                out["acc_fee_out"].movedim(1, 0))]
+            return res
 
     # Signal catalog: dotted trace name -> (group path in the debug lane
     # dict, circom signal it mirrors). The trace()/get_signal() pair is
@@ -383,7 +432,7 @@ class WithdrawEngine:
             self.calls[lanes] = CapturedCall(
                 self.run_packed_eager,
                 withdraw_input_shapes(self.n_levels, lanes), self.device,
-                pool=self._pool)
+                pool=self._pool, route="withdraw")
         return self.calls[lanes]
 
     def debug_call_for(self, lanes: int) -> CapturedCall:
@@ -393,7 +442,7 @@ class WithdrawEngine:
             self.debug_calls[lanes] = CapturedCall(
                 partial(self.run_packed_eager, debug=True),
                 withdraw_input_shapes(self.n_levels, lanes), self.device,
-                pool=self._pool)
+                pool=self._pool, route="withdraw.debug")
         return self.debug_calls[lanes]
 
     def compile(self, lanes: int) -> CapturedCall:
@@ -419,12 +468,19 @@ class WithdrawEngine:
         """inputs: list of withdraw input dicts (rootExit, ethAddr,
         tokenID, balance, idx, sign, ay, siblingsState). Returns
         (hash list of host ints, ok numpy bool array)."""
-        h, ok = self.run_packed(self.pack(inputs))
-        return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok)
+        with spans.span("witness.run"):
+            return self.unpack_outputs(*self.run_packed(self.pack(inputs)))
+
+    @staticmethod
+    def unpack_outputs(h, ok):
+        """(hash (16, B), ok (B,)) tensors -> (hash list of host ints, ok
+        numpy bool array)."""
+        with spans.span("witness.unpack"):
+            return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok)
 
     def run_debug(self, inputs: list[dict]):
         """Like run() but also returns the intermediates dict (the
         witness-vector export path), through the compiled debug route of
         that width."""
         h, ok, dbg = self.debug_call_for(len(inputs))(self.pack(inputs))
-        return [int(v) for v in fr.unpack_np(h)], fr.to_numpy(ok), dbg
+        return (*self.unpack_outputs(h, ok), dbg)

@@ -81,7 +81,8 @@ def compiled_check(params: tuple, device) -> CapturedCall:
         _CALLS[key] = CapturedCall(
             partial(check_masks, n_tx=n_tx, n_levels=n_levels,
                     max_fee_tx=max_fee_tx),
-            rollup_input_shapes(*params), device, pool=_POOLS[device])
+            rollup_input_shapes(*params), device, pool=_POOLS[device],
+            route="check")
     return _CALLS[key]
 
 
