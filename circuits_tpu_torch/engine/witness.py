@@ -26,25 +26,36 @@ The debug routes are compiled the same way, as the JAX engines jit them:
 `run_packed_eager(debug=True)` are their op-by-op routes. An engine's
 graphs share one memory pool (`aot.graph_pool` says why that is safe).
 
-A pack runs in two stages, a producer and a consumer: on the host each
-value becomes a numpy array (limbs by `fr.pack_np`, flags, bits), and each
-array is copied to the device as soon as it is made, where the limb tables
-are then permuted to their lane-last layout. The engines record their
-spans (`spans.py`): `witness.run` around `run`, `witness.pack` around the
-pack with a child `witness.pack.h2d` around each copy to a device other
-than the CPU (counter `h2d_bytes`), and `witness.unpack` around
+A pack stages a call's inputs in one host buffer and copies it once. On
+the host, `limbs.write` (a C routine, `csrc/limbs.c`) writes every field
+value's 16 uint16 limbs into the buffer, table after table, rows padded
+with zeros, and the flags and bits follow as int64 words; the buffer is
+copied to the device in one piece and widened there to the int64 limb
+tables, each permuted to its lane-last layout. On a card the buffer is
+page-locked, one a size for the process (`staging`), and the copy does
+not block: the next pack of that size waits on an event recorded after it
+before it writes the buffer again. On the CPU the same routine fills the
+buffer and the widening runs on the host. The engines record their spans
+(`spans.py`): `witness.run` around `run`, `witness.pack` around the pack
+(counters `pack_values`, the value slots written, and `pack_values_slow`,
+the values that needed Python's reduction) with a child
+`witness.pack.h2d` around the copy to a device other than the CPU
+(counter `h2d_bytes`, the staged bytes), and `witness.unpack` around
 `unpack_outputs`.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 from functools import partial
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .. import spans
-from ..field import fr
+from ..field import fr, limbs
 from .aot import (CapturedCall, graph_pool, rollup_input_shapes,
                   withdraw_input_shapes)
 from ..models.rollup_main import (build_chains, global_tail, rollup_main,
@@ -83,6 +94,10 @@ def _snake(name: str) -> str:
     return "".join(out)
 
 
+# bytes of a value's limbs, and of a flag or bit, in the staging buffer
+_VALUE, _WORD = 2 * fr.N_LIMBS, 8
+
+
 def resolve_device(device) -> torch.device:
     """`device` as a torch.device; raises where it names a CUDA device and
     there is none."""
@@ -94,64 +109,182 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _limbs(values) -> np.ndarray:
-    return fr.pack_np(values).astype(np.int64)
+def _based(v) -> int:
+    """A Withdraw field: a string is read with its base prefix (the
+    builder's hex strings)."""
+    return (int(str(v), 0) if isinstance(v, str) else int(v)) % fr.P
 
 
 def _flags(vals) -> np.ndarray:
     return np.array([int(v) for v in vals], dtype=np.int64)
 
 
-# limb tables packed (16, n, m) on the host and permuted on the device to
-# (m, 16, n): siblings (T, L+1) -> (L+1, 16, T), imAccFeeOut (T-1, F) ->
-# (F, 16, T-1)
-_LANE_LAST = ("siblings1", "siblings2", "siblings3", "siblings_state",
-              "im_acc_fee_out")
+def _bits(vals) -> np.ndarray:
+    return np.array(vals, dtype=np.int64)
 
 
-def _to_device(arrays, device: torch.device) -> dict:
-    """The pack's second stage: each (key, host array) of the first onto
-    `device` as it comes, in its dtype and shape, then the `_LANE_LAST`
-    tables permuted there. Copying each array while it is fresh lets the
-    host reuse its memory for the next; holding them all first costs a
-    fault on every new page, each call (16 ms of a RollupMain(2048, ...)
-    pack)."""
-    out = {}
-    for k, a in arrays:
-        if device.type == "cpu":
-            out[k] = torch.from_numpy(a)
-            continue
-        with spans.span("witness.pack.h2d"):
-            out[k] = torch.from_numpy(a).to(device)
-            spans.count("h2d_bytes", a.nbytes)
-    for k in _LANE_LAST:
-        if k in out:
-            out[k] = out[k].permute(2, 0, 1).contiguous()
+class _Table(NamedTuple):
+    """One table of a pack: its key in the packed dict, its key in the
+    input, its shape on the host ((n,) or (rows, width)), and how it is
+    staged: limbs (`read` the reduction of a value off the fast path, rows
+    zero-filled where `pad`) or, where `convert` is given, int64 words."""
+    key: str
+    src: str
+    shape: tuple
+    read: Callable = fr.to_field
+    pad: bool = False
+    convert: Callable | None = None
+
+
+def _rollup_tables(n_tx: int, n_levels: int, max_l1_tx: int,
+                   max_fee_tx: int) -> list[_Table]:
+    T, F, L = n_tx, max_fee_tx, n_levels + 1
+    lanes = dict.fromkeys(_PER_TX_FIELD, T) | dict.fromkeys(_PER_FEE_FIELD, F)
+    return [
+        *(_Table(_snake(k), k, (1,)) for k in _SCALARS),
+        *(_Table(_snake(k), k, (n,)) for k, n in lanes.items()),
+        *(_Table(_snake(k), k, (T,), convert=_flags) for k in _PER_TX_FLAG),
+        _Table("sign3", "sign3", (F,), convert=_flags),
+        _Table("from_bjj_compressed", "fromBjjCompressed", (T, 256),
+               convert=_bits),
+        _Table("siblings1", "siblings1", (T, L)),
+        _Table("siblings2", "siblings2", (T, L)),
+        _Table("siblings3", "siblings3", (F, L)),
+        _Table("im_on_chain", "imOnChain", (T - 1,), convert=_flags),
+        *(_Table(name, k, (F - 1 if k == "imStateRootFee" else T - 1,))
+          for k, name in _IM_FIELD.items()),
+        _Table("im_acc_fee_out", "imAccFeeOut", (T - 1, F)),
+    ]
+
+
+_WITHDRAW_FIELD = {"rootExit": "root_exit", "ethAddr": "eth_addr",
+                   "tokenID": "token_id", "balance": "balance", "idx": "idx",
+                   "ay": "ay"}
+
+
+def _withdraw_tables(n_levels: int, lanes: int) -> list[_Table]:
+    return [
+        *(_Table(name, k, (lanes,), _based)
+          for k, name in _WITHDRAW_FIELD.items()),
+        _Table("sign", "sign", (lanes,), convert=_flags),
+        _Table("siblings_state", "siblingsState", (lanes, n_levels + 1),
+               pad=True),
+    ]
+
+
+def staged_sizes(tables: list[_Table]) -> tuple[int, int]:
+    """(value slots, int64 words) of a pack's staging buffer: the limb
+    tables' values, 32 bytes each, then the flags and bits, 8 bytes each."""
+    slots = sum(math.prod(t.shape) for t in tables if t.convert is None)
+    words = sum(math.prod(t.shape) for t in tables if t.convert is not None)
+    return slots, words
+
+
+class _Staging:
+    """The page-locked host buffer of `nbytes` that every pack of that size
+    to one card fills, reused call after call. `copied` is recorded after
+    the copy that last read it: the host waits on it before it writes the
+    buffer again, and holds `lock` from the first write to the copy."""
+
+    def __init__(self, nbytes: int):
+        self.host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        self.copied = torch.cuda.Event()
+        self.lock = threading.Lock()
+
+
+# (card, bytes) -> its staging buffer, for the process: every caller of
+# `pack_rollup_inputs` or `pack_withdraw_inputs` (the engines, check_batch,
+# the CLI) shares it, and a size keeps its buffer once made
+_STAGING: dict[tuple, _Staging] = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def staging(device: torch.device, nbytes: int) -> _Staging:
+    """The staging buffer of `nbytes` on the card `device` (made at first
+    use)."""
+    key = (torch.cuda.current_device() if device.index is None
+           else device.index, nbytes)
+    with _STAGING_LOCK:
+        if key not in _STAGING:
+            _STAGING[key] = _Staging(nbytes)
+        return _STAGING[key]
+
+
+def _fill(buf: np.ndarray, tables: list[_Table], slots: int, get) -> int:
+    """The pack's host stage: every table's values (`get(src)`) into
+    `buf`, the limb tables first, 32 bytes a value (`limbs.write`), then
+    the int64 words, each table after the last; returns how many values
+    took the slow path."""
+    values = buf[:_VALUE * slots].view("<u2").reshape(slots, fr.N_LIMBS)
+    words = buf[_VALUE * slots:].view("<i8")
+    slot = word = slow = 0
+    for t in tables:
+        n = math.prod(t.shape)
+        if t.convert is None:
+            width = t.shape[1] if len(t.shape) == 2 else 0
+            slow += limbs.write(get(t.src), values[slot:slot + n], width,
+                                t.pad, t.read)
+            slot += n
+        else:
+            a = t.convert(get(t.src)).reshape(-1)
+            if a.size != n:
+                raise ValueError(f"{t.src}: {a.size} values, expected {n}")
+            words[word:word + n] = a
+            word += n
+    return slow
+
+
+def _widen(raw: torch.Tensor, tables: list[_Table], slots: int) -> dict:
+    """The pack's device stage: the staging bytes, on their device, to the
+    packed dict. The limbs are widened to int64 at once; then each table,
+    in order, has its first host axis (the lane axis) moved last, so a limb
+    table (n, 16) becomes (16, n) and (rows, width, 16) becomes (width, 16,
+    rows), and bits (T, 256) become (256, T)."""
+    wide = raw[:_VALUE * slots].view(torch.int16).to(torch.int64)
+    wide = wide.bitwise_and_(fr.MASK).view(slots, fr.N_LIMBS)
+    words = raw[_VALUE * slots:].view(torch.int64)
+    out, slot, word = {}, 0, 0
+    for t in tables:
+        n = math.prod(t.shape)
+        if t.convert is None:
+            x = wide[slot:slot + n].view(*t.shape, fr.N_LIMBS)
+            slot += n
+        else:
+            x = words[word:word + n].view(t.shape)
+            word += n
+        out[t.key] = x.movedim(0, -1).contiguous()
     return out
 
 
-def _rollup_host(inp: dict, max_fee_tx: int):
-    """The pack's first stage for RollupMain: (key, numpy int64 array),
-    one at a time."""
-    for k in _SCALARS:
-        yield _snake(k), _limbs([inp[k]])
-    for k in _PER_TX_FIELD + _PER_FEE_FIELD:
-        yield _snake(k), _limbs(inp[k])
-    for k in _PER_TX_FLAG:
-        yield _snake(k), _flags(inp[k])
-    yield "sign3", _flags(inp["sign3"])
-    # bits: (T, 256) LSB-first lists -> (256, T)
-    bjj = np.array(inp["fromBjjCompressed"], dtype=np.int64).reshape(-1, 256)
-    yield "from_bjj_compressed", np.ascontiguousarray(bjj.T)
-    for k in ("siblings1", "siblings2", "siblings3"):
-        yield k, _limbs(inp[k])
-    yield "im_on_chain", _flags(inp["imOnChain"])
-    for k, name in _IM_FIELD.items():
-        yield name, _limbs(inp[k])
-    acc = _limbs(inp["imAccFeeOut"])
-    if acc.ndim == 2:  # T = 1: an empty chain
-        acc = acc.reshape(16, 0, max_fee_tx)
-    yield "im_acc_fee_out", acc
+def _pack(tables: list[_Table], get, device: torch.device) -> dict:
+    """Stage the tables' values in one host buffer, copy it to `device` in
+    one piece and widen it there. On a card the buffer is the size's
+    pinned `staging` buffer and the copy does not block; on the CPU the
+    buffer is the tensors' own memory, and on another device (`meta`) a
+    fresh host buffer is copied."""
+    slots, words = staged_sizes(tables)
+    nbytes = _VALUE * slots + _WORD * words
+    with spans.span("witness.pack"):
+        if device.type != "cuda":
+            buf = np.empty(nbytes, dtype=np.uint8)
+            slow = _fill(buf, tables, slots, get)
+            raw = torch.from_numpy(buf)
+            if device.type != "cpu":
+                with spans.span("witness.pack.h2d"):
+                    raw = raw.to(device)
+                    spans.count("h2d_bytes", nbytes)
+        else:
+            stage = staging(device, nbytes)
+            with stage.lock:
+                stage.copied.synchronize()
+                slow = _fill(stage.host.numpy(), tables, slots, get)
+                with spans.span("witness.pack.h2d"):
+                    raw = stage.host.to(device, non_blocking=True)
+                    stage.copied.record(torch.cuda.current_stream(device))
+                    spans.count("h2d_bytes", nbytes)
+        spans.count("pack_values", slots)
+        spans.count("pack_values_slow", slow)
+        return _widen(raw, tables, slots)
 
 
 def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
@@ -159,13 +292,11 @@ def pack_rollup_inputs(inp: dict, n_tx: int, n_levels: int,
                        device="cuda") -> dict:
     """Builder/JSON input dict -> the models' tensors on `device`."""
     device = resolve_device(device)
-    with spans.span("witness.pack"):
-        return _to_device(_rollup_host(inp, max_fee_tx), device)
 
-
-_WITHDRAW_FIELD = {"rootExit": "root_exit", "ethAddr": "eth_addr",
-                   "tokenID": "token_id", "balance": "balance", "idx": "idx",
-                   "ay": "ay"}
+    def get(k):
+        return [inp[k]] if k in _SCALARS else inp[k]
+    return _pack(_rollup_tables(n_tx, n_levels, max_l1_tx, max_fee_tx), get,
+                 device)
 
 
 def pack_withdraw_inputs(inputs: list[dict], n_levels: int,
@@ -176,23 +307,8 @@ def pack_withdraw_inputs(inputs: list[dict], n_levels: int,
     read with its base prefix (the builder's hex strings); siblingsState is
     padded with zeros to nLevels + 1."""
     device = resolve_device(device)
-    levels = n_levels + 1
-
-    def value(v):
-        return int(str(v), 0) if isinstance(v, str) else int(v)
-
-    def host():
-        for k, name in _WITHDRAW_FIELD.items():
-            yield name, _limbs([value(d[k]) for d in inputs])
-        yield "sign", _flags([d["sign"] for d in inputs])
-        rows = []
-        for d in inputs:
-            sib = list(d["siblingsState"])
-            rows.append(sib + [0] * (levels - len(sib)))
-        yield "siblings_state", _limbs(rows)
-
-    with spans.span("witness.pack"):
-        return _to_device(host(), device)
+    return _pack(_withdraw_tables(n_levels, len(inputs)),
+                 lambda k: [d[k] for d in inputs], device)
 
 
 class RollupEngine:

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import scalar
+from . import limbs, scalar
 P, N_LIMBS, LIMB_BITS = scalar.P, scalar.N_LIMBS, scalar.LIMB_BITS
 LIMB_MASK, N0, R, R2 = scalar.LIMB_MASK, scalar.N0, scalar.R, scalar.R2
 
@@ -40,13 +40,18 @@ _MASK32 = 0xFFFFFFFF
 # ---------------------------------------------------------------------------
 
 
+def to_field(v) -> int:
+    """int(v) % P: the reduction a packed value takes off the fast path."""
+    return int(v) % P
+
+
 def pack_np(values) -> np.ndarray:
-    """Python ints (nested lists / 1-D) -> uint32 limb array (16, *shape)."""
+    """Python ints (nested lists / 1-D) -> uint32 limb array (16, *shape):
+    each value as int(v) % P, converted by `limbs.write`."""
     arr = np.asarray(values, dtype=object)
-    flat = arr.reshape(-1)
-    buf = b"".join((int(v) % P).to_bytes(32, "little") for v in flat)
-    limbs = np.frombuffer(buf, dtype="<u2").reshape(len(flat), N_LIMBS)
-    return np.ascontiguousarray(limbs.T).astype(np.uint32).reshape(
+    raw = np.empty((arr.size, N_LIMBS), dtype="<u2")
+    limbs.write(arr.reshape(-1).tolist(), raw, 0, False, to_field)
+    return np.ascontiguousarray(raw.T, dtype=np.uint32).reshape(
         (N_LIMBS,) + arr.shape)
 
 
@@ -65,11 +70,9 @@ def unpack_np(arr) -> np.ndarray:
     """Limb array (16, *shape) -> object ndarray of Python ints."""
     a = to_numpy(arr)
     assert a.shape[0] == N_LIMBS
-    flat = a.reshape(N_LIMBS, -1).T.astype("<u2")
-    raw = np.ascontiguousarray(flat).tobytes()
-    out = np.empty((flat.shape[0],), dtype=object)
-    for i in range(flat.shape[0]):
-        out[i] = int.from_bytes(raw[32 * i:32 * i + 32], "little")
+    raw = np.ascontiguousarray(a.reshape(N_LIMBS, -1).T, dtype="<u2")
+    out = np.empty((raw.shape[0],), dtype=object)
+    out[:] = limbs.read(raw)
     return out.reshape(a.shape[1:])
 
 

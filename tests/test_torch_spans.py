@@ -2,7 +2,8 @@
 nesting, parents, call ids and self time; the ring's bound and its count
 of drops; the records laid on `torch.profiler`'s clock; the spans that
 `RollupEngine.run` and `WithdrawEngine.run` record, under one call id;
-and the two-stage pack against the one-stage pack it replaced."""
+the two-stage pack against the one-stage pack it replaced; and the one
+copy of the pack's staging buffer with its bytes."""
 
 import random
 import sys
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from circuits_tpu_torch import spans
-from circuits_tpu_torch.engine import aot
+from circuits_tpu_torch.engine import aot, witness
 from circuits_tpu_torch.engine.witness import (RollupEngine, WithdrawEngine,
                                                pack_rollup_inputs,
                                                pack_withdraw_inputs)
@@ -305,23 +306,38 @@ def test_two_stage_withdraw_pack_equals_the_old_pack():
     _same(new, old)
 
 
+# the packed keys that are flags or bits: int64 words in the staging
+# buffer, 8 bytes a number; every other key is a limb table, staged as
+# uint16 limbs, 2 bytes a limb of its packed shape
+ROLLUP_WORDS = {"on_chain", "new_account", "new_exit", "is_old0_1",
+                "is_old0_2", "sign1", "sign2", "rq_offset", "sign3",
+                "from_bjj_compressed", "im_on_chain"}
+WITHDRAW_WORDS = {"sign"}
+
+
+def _staged_bytes(shapes: dict, words: set) -> int:
+    return sum((8 if k in words else 2) * int(np.prod(s))
+               for k, (s, _) in shapes.items())
+
+
 def test_copy_stage_counts_its_bytes_off_the_cpu():
     """On a device other than the CPU (here `meta`, which holds no data) the
-    copy stage records a `witness.pack.h2d` inside `witness.pack` for each
-    array it copies, with its bytes; together they are the packed
-    tensors' bytes."""
+    pack copies its one staging buffer in one `witness.pack.h2d` inside
+    `witness.pack`, with the buffer's bytes: the raw uint16 limbs of every
+    limb table and the int64 flags and bits, not the packed int64
+    tensors."""
     inp = suite_batches()["l2"].get_input()
     t0 = time.perf_counter_ns()
     packed = pack_rollup_inputs(inp, *SUITE_CONFIG, device="meta")
-    recs = _since(t0)
-    *copies, pack = recs
-    assert pack["name"] == "witness.pack" and len(copies) == len(packed) == 64
-    assert all(r["name"] == "witness.pack.h2d" and r["parent"] == pack["seq"]
-               for r in copies)
-    assert sum(r["counters"]["h2d_bytes"] for r in copies) == sum(
-        t.nelement() * t.element_size() for t in packed.values())
+    copy, pack = _since(t0)
+    assert pack["name"] == "witness.pack"
+    assert copy["name"] == "witness.pack.h2d"
+    assert copy["parent"] == pack["seq"]
+    shapes = aot.rollup_input_shapes(*SUITE_CONFIG)
+    assert copy["counters"] == {
+        "h2d_bytes": _staged_bytes(shapes, ROLLUP_WORDS)}
     assert {k: (tuple(v.shape), v.dtype) for k, v in packed.items()} == \
-        aot.rollup_input_shapes(*SUITE_CONFIG)
+        shapes
 
 
 def test_copied_bytes_at_the_production_shapes():
@@ -333,3 +349,19 @@ def test_copied_bytes_at_the_production_shapes():
     assert len(rollup) == 64 and nbytes(rollup) == 47_932_024
     withdraw = aot.withdraw_input_shapes(32, 32768)
     assert len(withdraw) == 8 and nbytes(withdraw) == 163_840_000
+
+
+def test_staged_bytes_at_the_production_shapes():
+    """The bytes a pack stages and copies at RollupMain(2048, 32, 256, 64)
+    and at 32,768 Withdraw(32) lanes: 32 a value slot, 8 a flag or bit,
+    from the packed shapes and from the pack's own tables."""
+    shapes = aot.rollup_input_shapes(2048, 32, 256, 64)
+    assert _staged_bytes(shapes, ROLLUP_WORDS) == 15_239_704
+    tables = witness._rollup_tables(2048, 32, 256, 64)
+    assert {t.key for t in tables} == shapes.keys()
+    assert witness.staged_sizes(tables) == (340_545, 542_783)
+    shapes = aot.withdraw_input_shapes(32, 32768)
+    assert _staged_bytes(shapes, WITHDRAW_WORDS) == 41_156_608
+    tables = witness._withdraw_tables(32, 32768)
+    assert [t.key for t in tables] == list(shapes)
+    assert witness.staged_sizes(tables) == (1_277_952, 32_768)

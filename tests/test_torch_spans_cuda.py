@@ -4,7 +4,10 @@ the call has returned, the pack's copy records the bytes of every tensor it
 moved, and nothing is added to the graph (its nodes and kernel counts as
 captured, `kernels.launches` untouched by replays). A device interval
 still running when the records are read stays pending, and nothing waits
-for it. These tests need a CUDA device and skip without one. They import
+for it. The pack's staging buffer: one copy a call of its pinned bytes,
+reused at the same address, the packs on the card equal to the CPU's, no
+stale limbs after shorter rows, and no buffer written while its last copy
+is still queued. These tests need a CUDA device and skip without one. They import
 no JAX, so they also run on a machine that has none:
 
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider \
@@ -18,8 +21,10 @@ import pytest
 import torch
 
 from circuits_tpu_torch import kernels, spans
-from circuits_tpu_torch.engine import aot
-from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
+from circuits_tpu_torch.engine import aot, witness
+from circuits_tpu_torch.engine.witness import (RollupEngine, WithdrawEngine,
+                                               pack_rollup_inputs,
+                                               pack_withdraw_inputs)
 from circuits_tpu_torch.scripts import withdraw_cases
 
 from torch_compare import SUITE_CONFIG, suite_batches
@@ -41,10 +46,15 @@ def _since(t0: int) -> list[dict]:
     return [r for r in spans.snapshot() if r["start_ns"] >= t0]
 
 
-def _check_calls(recs: list[dict], route: str, packed: dict, runs: int):
+def _staged_bytes(tables) -> int:
+    slots, words = witness.staged_sizes(tables)
+    return 32 * slots + 8 * words
+
+
+def _check_calls(recs: list[dict], route: str, staged: int, runs: int):
     """Each `run` among `recs`: the records of one call under one call id,
     the replay's launch and graph inside it, the graph's device seconds
-    read, the copy's bytes those of `packed`."""
+    read, one copy of the `staged` bytes inside the pack."""
     roots = [r for r in recs if r["name"] == "witness.run"]
     assert len(roots) == runs
     for root in roots:
@@ -61,10 +71,9 @@ def _check_calls(recs: list[dict], route: str, packed: dict, runs: int):
         assert replay["start_ns"] <= graph["start_ns"] <= launch["start_ns"] \
             <= launch["end_ns"] <= graph["end_ns"] <= replay["end_ns"]
         copies = [r for r in calls if r["name"] == "witness.pack.h2d"]
-        assert len(copies) == len(packed)
-        assert {r["parent"] for r in copies} == {mine["witness.pack"]["seq"]}
-        assert sum(r["counters"]["h2d_bytes"] for r in copies) == sum(
-            t.nelement() * t.element_size() for t in packed.values())
+        assert len(copies) == 1
+        assert copies[0]["parent"] == mine["witness.pack"]["seq"]
+        assert copies[0]["counters"] == {"h2d_bytes": staged}
 
 
 @pytest.mark.parametrize("lanes", [1, 33])
@@ -80,13 +89,13 @@ def test_withdraw_replays_record_their_launch_and_graph(cuda, lanes):
     call = engine.calls[lanes]
     assert call.counts == eager
     nodes, counts = call.nodes, dict(call.counts)
-    packed = engine.pack(batch)
     kernels.reset_launches()
     t0 = time.perf_counter_ns()
     for _ in range(3):
         hashes, ok = engine.run(batch)
         assert ok.all()
-    _check_calls(_since(t0), "withdraw", packed, 3)
+    _check_calls(_since(t0), "withdraw", _staged_bytes(
+        witness._withdraw_tables(n_levels, lanes)), 3)
     assert call.replays == 4 and len(call._events) == 1
     assert not any(kernels.launches.values()), kernels.launches
     assert aot.graph_kernels(call.graph, cuda) == (nodes, counts)
@@ -103,13 +112,13 @@ def test_rollup_replays_record_their_launch_and_graph(cuda):
     call = engine.call
     assert call.counts == eager
     nodes, counts = call.nodes, dict(call.counts)
-    packed = engine.pack(a)
     kernels.reset_launches()
     t0 = time.perf_counter_ns()
     for inp in (a, b, a):
         res, ok = engine.run(inp)
         assert ok
-    _check_calls(_since(t0), "rollup", packed, 3)
+    _check_calls(_since(t0), "rollup", _staged_bytes(
+        witness._rollup_tables(*SUITE_CONFIG)), 3)
     assert call.replays == 4 and len(call._events) == 1
     assert not any(kernels.launches.values()), kernels.launches
     assert aot.graph_kernels(call.graph, cuda) == (nodes, counts)
@@ -135,3 +144,70 @@ def test_device_interval_stays_pending_until_it_completes(cuda):
             and r["start_ns"] == t]
     assert done[0]["device_s"] > 0.01
     assert spans.event_pair(pairs) is pairs[0]
+
+
+def _same_pack(got: dict, want: dict) -> None:
+    assert list(got) == list(want)
+    for k, w in want.items():
+        g = got[k]
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), k
+        assert g.is_contiguous(), k
+        assert torch.equal(g.cpu(), w), k
+
+
+def _withdraw_lanes(n: int, n_levels: int = 16, seed: int = 5) -> list:
+    return withdraw_cases.exit_tree_batch(random.Random(seed), n, n_levels)
+
+
+def test_staged_pack_on_the_card_equals_the_cpu_pack(cuda):
+    bbs = suite_batches()
+    for name in ("l2", "deposit"):
+        inp = bbs[name].get_input()
+        _same_pack(pack_rollup_inputs(inp, *SUITE_CONFIG, device=cuda),
+                   pack_rollup_inputs(inp, *SUITE_CONFIG, device="cpu"))
+    lanes = _withdraw_lanes(5)
+    _same_pack(pack_withdraw_inputs(lanes, 16, device=cuda),
+               pack_withdraw_inputs(lanes, 16, device="cpu"))
+
+
+def test_staging_buffer_is_pinned_and_reused(cuda):
+    """A shape's staging buffer is page-locked, made once, and the second
+    pack of the shape fills the same memory."""
+    lanes = _withdraw_lanes(7)
+    nbytes = _staged_bytes(witness._withdraw_tables(16, 7))
+    pack_withdraw_inputs(lanes, 16, device=cuda)
+    stage = witness.staging(cuda, nbytes)
+    made, ptr = len(witness._STAGING), stage.host.data_ptr()
+    assert stage.host.is_pinned() and stage.host.numel() == nbytes
+    pack_withdraw_inputs(lanes[::-1], 16, device=cuda)
+    assert witness.staging(cuda, nbytes) is stage
+    assert stage.host.data_ptr() == ptr and len(witness._STAGING) == made
+
+
+def test_shorter_rows_after_longer_leave_no_stale_limbs(cuda):
+    """Sibling rows cut to one value after full rows of the same shape:
+    the padding of the second pack is zero, not the first pack's limbs."""
+    lanes = _withdraw_lanes(6)
+    assert all(len(d["siblingsState"]) > 1 for d in lanes)
+    short = [dict(d, siblingsState=d["siblingsState"][:1]) for d in lanes]
+    pack_withdraw_inputs(lanes, 16, device=cuda)
+    got = pack_withdraw_inputs(short, 16, device=cuda)
+    _same_pack(got, pack_withdraw_inputs(short, 16, device="cpu"))
+    assert not got["siblings_state"][1:].any()
+
+
+def test_packs_in_a_row_each_get_their_own_inputs(cuda):
+    """Two packs of one shape with different inputs, the first copy held
+    back on the stream behind a long sleep: the second pack waits on the
+    first copy's event before it writes the buffer, so each gives its own
+    answer."""
+    a, b = _withdraw_lanes(8, seed=11), _withdraw_lanes(8, seed=12)
+    want_a = pack_withdraw_inputs(a, 16, device="cpu")
+    want_b = pack_withdraw_inputs(b, 16, device="cpu")
+    pack_withdraw_inputs(a, 16, device=cuda)  # the buffer of the shape
+    torch.cuda.synchronize(cuda)
+    torch.cuda._sleep(200_000_000)  # about a tenth of a second
+    got_a = pack_withdraw_inputs(a, 16, device=cuda)
+    got_b = pack_withdraw_inputs(b, 16, device=cuda)
+    _same_pack(got_a, want_a)
+    _same_pack(got_b, want_b)
