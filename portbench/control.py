@@ -27,42 +27,25 @@ from pathlib import Path
 if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from portbench import harness, judge, traffic  # noqa: E402
-from portbench.reference.scalar import P  # noqa: E402
+from portbench import files, harness, judge, traffic  # noqa: E402
 
 
-def lazy(x: int) -> int:
-    """x as a lazily reduced value: x + p, in [p, 2p)."""
-    return x + P
-
-
-def outputs(entry: str, load, calls: int) -> list:
+def outputs(route, load, calls: int) -> list:
     """The control's (item, output) for `calls` calls in the window's
-    order, in the form the entry's calls return."""
+    order, in the form the entry's calls return (`control` of
+    `routes/<entry>.py`)."""
     traffic.answers(load, set(load.order))
-    outs = []
-    for k in range(calls):
-        item = load.order[k % len(load.order)]
-        exp = load.expected[item]
-        if entry == "rollup.run":
-            out = {key: (lazy(exp[key]) if key != "acc_fee_out"
-                         else [lazy(v) for v in exp[key]])
-                   for key in judge.ROLLUP_FIELDS[:-1]}
-            outs.append((item, (out, exp["ok"])))
-        elif entry == "withdraw.run":
-            outs.append((item, ([lazy(h) for h in exp["hash"]], exp["ok"])))
-        else:
-            raise ValueError(f"unknown entry {entry!r}")
-    return outs
+    items = [load.order[k % len(load.order)] for k in range(calls)]
+    return [(item, route.control(load, item)) for item in items]
 
 
 def readings(root: Path, workload: str, seed: int) -> list:
     """The judge's checks on the control for one seed."""
     _, _, _, config, mix = harness.cell_files(root, workload)
-    load = traffic.build(config, mix, seed)
+    route = files.load(root, "routes", mix["entry"])
+    load = traffic.build(root, config, mix, seed)
     calls = 2 * len(load.order) if len(load.order) < 64 else 64
-    checks, _ = judge.judge(mix["entry"], load,
-                            outputs(mix["entry"], load, calls))
+    checks, _ = judge.judge(route, load, outputs(route, load, calls))
     return checks
 
 

@@ -1,16 +1,22 @@
 """Run one cell of `BENCHMARK.json` and print its result line.
 
-Everything a cell needs is found by name: the cell's entry in
-`BENCHMARK.json` names its configuration (a file under `configs/`) and its
-mix (`traffic/<mix>.json`); each metric is read by `metrics/<name>.py`
-(a function `read(run)` that returns a number, or None where it finds
-nothing to read). A cell, a mix or a metric is added with files and
-entries, never with an edit here.
+Everything a cell needs is found by name (`files.py`), under the one
+checkout root the run is given: the cell's entry in `BENCHMARK.json`
+names its configuration (a file under `configs/`) and its mix
+(`traffic/<mix>.json`); each metric is read by `metrics/<name>.py` (a
+function `read(run)` that returns a number, or None where it finds
+nothing to read); the mix's `entry` names the port's entry point,
+`routes/<entry>.py` (the class driven, its judge and its control,
+`entries.py`); the configuration's `circuit` names
+`circuits/<circuit>.py` (the traffic's build and the reference's answers,
+`traffic.py`). A part named with no file refuses the run. A cell, a mix,
+a metric, an entry point or a circuit is added with files and entries,
+never with an edit here.
 
 A run: the traffic is made from the seed by the plain reference
-(`traffic.py`); the port's entry point (`entries.py`) is built and warmed
-up on that traffic's first calls (its first call op by op, its second
-captures the graph), which with the input build is the set-up; then for
+(`traffic.py`); the port's entry point is built and warmed up on that
+traffic's first calls (its first call op by op, its second captures the
+graph), which with the input build is the set-up; then for
 `--seconds` the entry is called in a closed loop, one caller, each call
 after the last returned, cycling the mix's calls. With `--trace 1` each
 call is cut at the port's layers inside host spans; after the window the
@@ -19,9 +25,10 @@ first items it served are called once more through the entry's plain
 `traced_calls_differ`), and `profile_calls` more calls run under
 `torch.profiler`. Once the window has closed the peak memory is read, the
 port's state is freed, `sys.modules` is searched for JAX, and every call's
-outputs are judged against the reference (`judge.py`). The last line of standard output is the result;
-the numbers compared, each beside its limit, are the last lines of
-standard error and the last key of the result.
+outputs are judged against the reference (`judge.py` and the entry's
+`judge`). The last line of standard output is the result; the numbers
+compared, each beside its limit, are the last lines of standard error and
+the last key of the result.
 """
 
 from __future__ import annotations
@@ -35,16 +42,13 @@ import time
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from . import entries, judge, trace, traffic
+from . import entries, files, judge, trace, traffic
+from .files import Refused
 from .reference import native
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "circuits_tpu")
 RECALLED = 3  # the distinct items of a traced window called again plainly
-
-
-class Refused(Exception):
-    """A run that may print no result (exit code 2)."""
 
 
 @dataclass
@@ -95,13 +99,7 @@ def metrics_of(manifest: dict, cell: str, traced: bool) -> list[dict]:
 
 def reader(root: Path, name: str):
     """`read` of `portbench/metrics/<name>.py`."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench.metrics._" + name.replace(".", "_").replace("-", "_"),
-        path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return files.load(root, "metrics", name).read
 
 
 def require_cards(chips: int) -> str:
@@ -196,6 +194,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     the card."""
     t_start = time.perf_counter() if t_start is None else t_start
     manifest, cell, _, config, mix = cell_files(root, workload)
+    route = files.load(root, "routes", mix["entry"])
     if importlib.util.find_spec("circuits_tpu_torch") is None:
         raise Refused("the port, circuits_tpu_torch, is not in the checkout")
     if device == "cuda":
@@ -208,11 +207,11 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         torch.device(device)
     parts = {}
     t = time.perf_counter()
-    load = traffic.build(config, mix, seed)
+    load = traffic.build(root, config, mix, seed)
     parts["inputs"] = time.perf_counter() - t
     parts.update({f"inputs.{k}": v for k, v in load.seconds.items()})
     parts["library"] = entries.library_seconds()
-    entry = entries.ENTRIES[mix["entry"]](config, load, dev)
+    entry = route.Entry(config, load, dev)
     parts.update(entry.warm())
     run = Run(cell, config, mix, load, kind)
     run.setup_s = time.perf_counter() - t_start
@@ -249,7 +248,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    checks, failed = judge.judge(mix["entry"], load, outs)
+    checks, failed = judge.judge(route, load, outs)
     checks += recalled
     correct = all(v <= limit for _, v, limit in checks)
     metrics = {}

@@ -27,8 +27,8 @@ def refused_first(monkeypatch):
 
     real = traffic.build
 
-    def build(config, mix, seed):
-        load = real(config, mix, seed)
+    def build(root, config, mix, seed):
+        load = real(root, config, mix, seed)
         load.order.sort(key=lambda i: load.expected[i]["ok"])
         return load
     monkeypatch.setattr(traffic, "build", build)
@@ -41,7 +41,8 @@ def run(root, cell, traced=False, seed=SEED):
 
 
 @pytest.mark.parametrize("cell", ["standin.transfers", "standin.padded",
-                                  "standin.backlog"])
+                                  "standin.backlog", "standin.copied",
+                                  "standin.circuit"])
 def test_port_matches_reference(standin_root, cell):
     result, checks = run(standin_root, cell)
     assert result["correct"] and result["failed"] == 0, checks
@@ -68,7 +69,7 @@ def test_refused_copy_expected_refused(standin_root, monkeypatch):
     from portbench import traffic
     from portbench.tests import standin
 
-    load = traffic.build(standin.CONFIGS["rollup-4-16-2-2"],
+    load = traffic.build(standin_root, standin.CONFIGS["rollup-4-16-2-2"],
                          standin.MIXES["standin-transfers"], SEED)
     assert [e["ok"] for e in load.expected] == [True, True, False]
     differ = [k for k, (a, b) in enumerate(zip(load.items[0]["s"],
@@ -97,7 +98,8 @@ def test_traced_fork_held_to_run(standin_root, monkeypatch):
     assert not result["correct"] and checks["traced_calls_differ"] > 0
 
 
-@pytest.mark.parametrize("cell", ["standin.transfers", "standin.backlog"])
+@pytest.mark.parametrize("cell", ["standin.transfers", "standin.backlog",
+                                  "standin.copied", "standin.circuit"])
 def test_control_is_refused(standin_root, cell):
     checks = control.readings(standin_root, cell, SEED)
     assert any(v > limit for _, v, limit in checks)
@@ -145,6 +147,10 @@ def _withdraw_fault(kind):
     ("standin.backlog", _withdraw_fault, "half left out", "lanes_wrong_hash"),
     ("standin.backlog", _withdraw_fault, "answer altered",
      "lanes_wrong_hash"),
+    ("standin.copied", _rollup_fault, "answer altered",
+     "calls_wrong_hash_global_inputs"),
+    ("standin.circuit", _rollup_fault, "answer altered",
+     "calls_wrong_hash_global_inputs"),
 ])
 def test_fault_turns_correct_false(standin_root, monkeypatch, cell, fault,
                                    kind, check):
@@ -156,18 +162,57 @@ def test_fault_turns_correct_false(standin_root, monkeypatch, cell, fault,
     assert checks[check] > 0
 
 
+def test_entry_without_a_file_is_refused(standin_root):
+    """A mix whose entry point has no file under `routes/` is a refused
+    run, one that names the missing file, and the command line exits 2
+    with no result."""
+    with pytest.raises(harness.Refused,
+                       match=r"portbench/routes/standin\.unrouted\.py"):
+        harness.run_cell(standin_root, "standin.unrouted", SEED, 0.01, False,
+                         device="cpu")
+    out = subprocess.run(
+        [sys.executable, str(standin_root / "portbench" / "run.py"),
+         "--workload", "standin.unrouted", "--seed", str(SEED), "--seconds",
+         "1", "--trace", "0"], capture_output=True, text=True, timeout=300,
+        cwd=standin_root, env=dict(os.environ, PYTHONPATH=""))
+    assert out.returncode == 2 and not out.stdout.strip(), out.stderr[-3000:]
+    assert "portbench/routes/standin.unrouted.py" in out.stderr
+
+
+def test_circuit_found_under_the_runs_root(standin_root):
+    """A configuration's circuit is found under the checkout the run is
+    given, as its entry point is: the stand-in checkout's added circuit
+    builds there and not under the repo's own root; a configuration whose
+    circuit has no file is a refused run, one that names the missing
+    file."""
+    from portbench import traffic
+    from portbench.tests import standin
+
+    config = standin.CONFIGS["standin-4-16-2-2"]
+    mix = standin.MIXES["standin-transfers"]
+    assert traffic.build(standin_root, config, mix, SEED).root == \
+        standin_root
+    with pytest.raises(harness.Refused,
+                       match=r"portbench/circuits/StandinMain\.py"):
+        traffic.build(harness.ROOT, config, mix, SEED)
+    with pytest.raises(harness.Refused,
+                       match=r"portbench/circuits/Uncircuited\.py"):
+        harness.run_cell(standin_root, "standin.uncircuited", SEED, 0.01,
+                         False, device="cpu")
+
+
 def test_workcount_of_a_transfers_batch():
     from portbench import traffic
     from portbench.tests import standin
 
-    load = traffic.build(standin.CONFIGS["rollup-4-16-2-2"],
+    load = traffic.build(harness.ROOT, standin.CONFIGS["rollup-4-16-2-2"],
                          standin.MIXES["standin-transfers"], SEED)
     w = load.work[0]["permutations"]
     # four signed transfers, both processors UPDATE, one fee slot
     assert w[7] == w[6] == load.work[0]["eddsa"] == 4
     assert w[5] == 4 * 4 + 2 and w[4] == 4 * 4 + 2
     # a deposit (INSERT, processor 2 a NOP), two transfers, a NOP lane
-    load = traffic.build(standin.CONFIGS["rollup-4-16-2-2"],
+    load = traffic.build(harness.ROOT, standin.CONFIGS["rollup-4-16-2-2"],
                          standin.MIXES["standin-padded"], SEED)
     w = load.work[0]["permutations"]
     assert w[7] == w[6] == load.work[0]["eddsa"] == 2
@@ -253,8 +298,12 @@ def test_sources_import_no_jax():
         assert not names & set(harness.FORBIDDEN), path
         if "reference" in path.parts:
             assert "circuits_tpu_torch" not in names, path
-    # the harness's side: only the entries module imports the port
-    port_users = {p.name for p in bench.rglob("*.py")
+    # the harness's side: only the entry points' files and what they share
+    # import the port
+    port_users = {p.relative_to(bench).as_posix()
+                  for p in bench.rglob("*.py")
                   if "tests" not in p.parts
                   and "circuits_tpu_torch" in _top_level_imports(p)}
-    assert port_users == {"entries.py"}
+    routes = {p.relative_to(bench).as_posix()
+              for p in (bench / "routes").glob("*.py")}
+    assert port_users == {"entries.py"} | routes
