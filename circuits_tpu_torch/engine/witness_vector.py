@@ -48,6 +48,16 @@ signals alone and re-checks every reference `===` residual
 Binary format: the snarkjs `.wtns` container (magic "wtns", version 2,
 section 1 = field header, section 2 = 32-byte little-endian values) plus
 a JSON sidecar mapping canonical names to indices (the `.sym` analogue).
+
+`handoff(engine, inp, path)` is the coordinator's step after a batch: the
+vector written as a `.wtns` where the circuit accepts the batch, nothing
+where it refuses it (the reference's witness calculator stops there with
+"Constraint doesn't match"). `export_witness` shares its body and exports
+whatever the verdict. Spans (`spans.py`): `export.handoff` around a
+handoff; `export.evaluate` the pack and the debug graph up to the
+verdict; `export.read` the device's values to the Python int vector
+(counter `export_values`); `export.write` the file (counter
+`wtns_bytes`).
 """
 
 from __future__ import annotations
@@ -56,7 +66,8 @@ import json
 import struct
 from pathlib import Path
 
-from ..field import fr
+from .. import spans
+from ..field import fr, limbs
 from ..field.scalar import P
 from ..models.decode_tx import L1_TX_FULL_BITS, l1l2_bits
 
@@ -211,9 +222,9 @@ def signal_names(n_tx: int, n_levels: int, max_l1_tx: int,
     return names
 
 
-def _ints(limbs) -> list[int]:
+def _ints(arr) -> list[int]:
     """(16, B) canonical limb tensor -> list of B python ints."""
-    return [int(v) for v in fr.unpack_np(limbs)]
+    return fr.unpack_np(arr).tolist()
 
 
 def _flags(arr) -> list[int]:
@@ -227,14 +238,64 @@ def _column(arr) -> list[int]:
     return _ints(arr) if arr.dim() == 2 else _flags(arr)
 
 
+def _evaluate(engine, inp: dict):
+    """One debug evaluation of the whole circuit through the engine's
+    captured `debug_call`: (lanes, outputs, ok), the verdict read back."""
+    with spans.span("export.evaluate"):
+        lanes, _lane_ok, out, ok = engine._full_debug(inp)
+        return lanes, out, bool(ok)
+
+
+def _vector(engine, inp: dict, lanes: dict, out: dict) -> list[int]:
+    """The canonical vector of one evaluation: every signal's value brought
+    to the host as a Python int, in `signal_names` order."""
+    with spans.span("export.read"):
+        values = _values(engine, inp, lanes, out)
+        spans.count("export_values", len(values))
+        return values
+
+
 def export_witness(engine, inp: dict) -> tuple[list[str], list[int]]:
     """Evaluate the full witness for a builder/JSON input dict.
 
-    Returns (names, values) in canonical order. `engine` is a
-    RollupEngine; one debug evaluation computes every signal."""
+    Returns (names, values) in canonical order, whatever the verdict.
+    `engine` is a RollupEngine; one debug evaluation computes every
+    signal."""
+    lanes, out, _ = _evaluate(engine, inp)
+    values = _vector(engine, inp, lanes, out)
+    names = signal_names(*engine.params)
+    assert len(names) == len(values), (len(names), len(values))
+    return names, values
+
+
+def handoff(engine, inp: dict, path: str | Path):
+    """The prover's handoff of one batch: evaluate it, and where the
+    circuit accepts it write the full vector to `path` as a `.wtns`.
+
+    Returns (outputs, ok). A batch the circuit refuses writes nothing,
+    reads nothing back and returns (None, False), as the reference's
+    witness calculator stops at a constraint that does not hold. Otherwise
+    the outputs are the public ones as `RollupEngine.run` keys them, read
+    from the vector written."""
+    with spans.span("export.handoff"):
+        lanes, out, ok = _evaluate(engine, inp)
+        if not ok:
+            return None, False
+        values = _vector(engine, inp, lanes, out)
+        with spans.span("export.write"):
+            spans.count("wtns_bytes", write_wtns(path, values))
+        F = engine.params[3]
+        tail = len(values) - F - 3  # newLastIdx, the two roots, accFeeOut
+        return dict(hash_global_inputs=values[1],
+                    new_state_root=values[tail + 1],
+                    new_exit_root=values[tail + 2],
+                    new_last_idx=values[tail],
+                    acc_fee_out=values[tail + 3:]), True
+
+
+def _values(engine, inp: dict, lanes: dict, out: dict) -> list[int]:
     n_tx, n_levels, max_l1_tx, max_fee_tx = engine.params
     T, F, L = n_tx, max_fee_tx, n_levels + 1
-    lanes, lane_ok, out, ok = engine._full_debug(inp)
 
     def gi(key):  # input value list (per-lane camelCase key)
         return [int(v) for v in inp[key]]
@@ -351,28 +412,30 @@ def export_witness(engine, inp: dict) -> tuple[list[str], list[int]]:
     values.append(fr.unpack_int(out["new_state_root"]))
     values.append(fr.unpack_int(out["new_exit_root"]))
     values += _ints(out["acc_fee_out"].movedim(1, 0))  # (F, 16) -> (16, F)
-
-    names = signal_names(*engine.params)
-    assert len(names) == len(values), (len(names), len(values))
-    return names, values
+    return values
 
 
 # ---------------------------------------------------------------------------
 # .wtns container (snarkjs binary witness format) + name sidecar
 # ---------------------------------------------------------------------------
 
-def write_wtns(path: str | Path, values: list[int]) -> None:
+def write_wtns(path: str | Path, values: list[int]) -> int:
     """snarkjs .wtns v2 container: the handoff format snarkjs's prover
-    reads (reference actions.js:139 writes the JSON twin)."""
+    reads (reference actions.js:139 writes the JSON twin). Returns the
+    bytes written."""
     path = Path(path)
     n8 = 32
     sec1 = struct.pack("<I", n8) + P.to_bytes(32, "little") + \
         struct.pack("<I", len(values))
-    sec2 = b"".join((v % P).to_bytes(32, "little") for v in values)
+    # each value as (v % P).to_bytes(32, "little"), by the pack's C routine
+    sec2 = bytearray(n8 * len(values))
+    limbs.write(values, sec2, 0, False, fr.to_field)
     with path.open("wb") as f:
         f.write(b"wtns" + struct.pack("<II", 2, 2))
         f.write(struct.pack("<IQ", 1, len(sec1)) + sec1)
-        f.write(struct.pack("<IQ", 2, len(sec2)) + sec2)
+        f.write(struct.pack("<IQ", 2, len(sec2)))
+        f.write(sec2)
+    return 12 + 12 + len(sec1) + 12 + len(sec2)
 
 
 def read_wtns(path: str | Path) -> list[int]:
