@@ -21,7 +21,9 @@ Phases (any failure raises, and the exit code is then non-zero):
     again at the lane counts of the main path's calls at RollupMain(2048,
     32, 256, 64), where both versions are timed; K3 also with the card
     filled (32768 lanes, the kernel alone), and beside its throughput bound
-    the time of one lane's own chain of dependent products;
+    the time of one lane's own chain of dependent products; AySign2Ax
+    (csrc/ay_sign.cu, no TPU original) on its edge lanes at 1, 33 and 1000
+    lanes and timed at 2048;
  4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
     token), run `RollupEngine(...).run` on the card (the engine's first
@@ -133,7 +135,7 @@ Each kernel's `bound_ms` is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's rate for them: Montgomery products over the measured `fr_mont_mul`
 rate, K6's mix over the published 1,979 TOP/s int8, K4's serial chain of
-rounds (3 dependent operations a round) over the card's clock. No PyTorch call computes any of the six
+rounds (3 dependent operations a round) over the card's clock. No PyTorch call computes any of the seven
 functions, so `library_ms` is null in every row.
 
 The line before the last is {"kernels": [...]} (each row also with the
@@ -209,6 +211,8 @@ SOURCES = {
                             "scripts/exp_mxu_inkernel.py:230"),
     "poseidon_rounds_mxu": ("circuits_tpu_torch/csrc/poseidon_rounds.cu",
                             "scripts/exp_mxu_inkernel.py:220"),
+    # the port's own kernel: the JAX package computes it in plain JAX
+    "ay_sign_to_ax": ("circuits_tpu_torch/csrc/ay_sign.cu", None),
 }
 # the full-round experiment at the JAX script's defaults
 EXP_LANES, EXP_ROUNDS = 65536, 16
@@ -241,6 +245,15 @@ EDDSA_STEPS = (2 + 14 * len(EDDSA_ADD_STEPS)
                + 64 * (4 * len(EDDSA_DBL_STEPS) + len(EDDSA_ADD_STEPS))
                + len(EDDSA_ADD_STEPS) + 1)
 EDDSA_MAIN_PATH_LANES, EDDSA_FILLED_LANES = 2048, 32768
+# AySign2Ax (csrc/ay_sign.cu), a lane: the Montgomery products it forms (y to
+# Montgomery form, y^2, D y^2; the inverse's 254 steps and the sqrt power's
+# 225, two products each; num / den; r and t; Tonelli-Shanks' 27 steps of
+# three products and their 351 squarings; r^2 and r canonical), and the steps
+# of its chain of dependent ones (a power's multiply hides behind its
+# squaring, a Tonelli-Shanks step's r c behind c^2)
+AY_SIGN_PRODUCTS = 3 + 2 * 254 + 1 + 2 * 225 + 2 + 27 * 3 + 351 + 2
+AY_SIGN_STEPS = 3 + 254 + 1 + 225 + 2 + 27 * 2 + 351 + 2
+AY_SIGN_MAIN_PATH_LANES = 2048  # one signature's key a tx lane
 SHA_BLOCKS = 822  # the HashInputs preimage at RollupMain(2048, 32, 256, 64)
 # a SHA-256 round's chain from e to the next e, once h + K + W + d is formed
 # ahead: a funnel shift of Sigma1, the three-input xor, the three-input add
@@ -649,6 +662,40 @@ def check_eddsa(dev, rng):
           flush=True)
 
 
+def check_ay_sign(dev, rng):
+    """AySign2Ax's kernel against its plain version on the edge lanes
+    (`eddsa_cases.ay_sign_lanes`) and random ones at 1, 33 and 1000 lanes,
+    its ax and ok also against the host's scalar version; then timed at the
+    main path's 2,048 lanes beside its bound and its chain's time."""
+    from circuits_tpu_torch.r1cs import witness_check as wc
+
+    ays, signs = eddsa_cases.ay_sign_lanes(rng, LANES)
+    ay = fr.pack(ays, dev)
+    sign = torch.tensor(signs, dtype=torch.bool, device=dev)
+    for n in RAGGED + (LANES,):
+        a, sg = ay[:, :n].contiguous(), sign[:n].contiguous()
+        got = compare("ay_sign_to_ax", f"B={n} edge and random lanes",
+                      lambda: babyjubjub.ay_sign_to_ax(a, sg),
+                      lambda: babyjubjub.ay_sign_to_ax_plain(a, sg), 5,
+                      timed=False)
+    host = [wc._ay_sign_to_ax(y, g) for y, g in zip(ays[:64], signs)]
+    assert [(int(x), bool(k)) for x, k in zip(
+        fr.unpack_np(got[0].cpu())[:64], got[1].tolist())] == host, \
+        "AySign2Ax differs from the host"
+    n = AY_SIGN_MAIN_PATH_LANES
+    a, sg = tile(ay, n), tile(sign, n)
+    compare("ay_sign_to_ax", f"B={n} (lanes tiled)",
+            lambda: babyjubjub.ay_sign_to_ax(a, sg),
+            lambda: babyjubjub.ay_sign_to_ax_plain(a, sg), 20,
+            bound_of=(AY_SIGN_PRODUCTS * n / rates["mont_mul"],
+                      nbytes(a, sg) + n * (16 * 8 + 1)))
+    r = results["ay_sign_to_ax"]
+    chain_ms = AY_SIGN_STEPS * rates["chain_ns"] * 1e-6
+    print(f"  ay_sign_to_ax     B={n}: a lane's chain is {AY_SIGN_STEPS} "
+          f"steps x {rates['chain_ns']:.1f} ns = {chain_ms:.4f} ms, the "
+          f"kernel reaches {100 * chain_ms / r['ms']:.1f} % of it", flush=True)
+
+
 def _sha_words(msgs, dev):
     """Messages of one length, hashlib-style padding -> (nblocks * 16, B)
     int64 words."""
@@ -822,7 +869,8 @@ def check_withdraw(rng, card):
                   for k, n in kernels.launches.items()}
         assert counts["poseidon_permute"] > 0, counts
         assert counts["sha256_chain"] == 1, counts
-        assert counts["smt_chain"] == 0 and counts["eddsa_check"] == 0, counts
+        assert counts["smt_chain"] == 0 and counts["eddsa_check"] == 0 \
+            and counts["ay_sign_to_ax"] == 0, counts
         return hashes, ok, counts
 
     # every lane valid; then known lanes tampered, each kind in turn
@@ -1851,6 +1899,7 @@ def main() -> None:
     check_poseidon(dev, rng)
     check_smt(dev, rng)
     check_eddsa(dev, rng)
+    check_ay_sign(dev, rng)
     check_sha(dev, rng)
 
     # 4 - the production batch through the engine

@@ -6,7 +6,7 @@ package's `RollupEngine` and `WithdrawEngine` hold
 (`circuits_tpu/engine/witness.py`): there the monomorphised circuit is
 traced from the shapes of its packed input, compiled once into one program
 and run for each batch. Here the engine's eager path -- the plain PyTorch
-field operations and the kernels K1-K4 of `csrc/` -- is recorded once by
+field operations and the kernels of `csrc/` -- is recorded once by
 `torch.cuda.graph` on static input buffers of the same shapes
 (`rollup_input_shapes`, `withdraw_input_shapes`). Each batch is copied into
 those buffers and the graph is replayed: the same kernels with the same

@@ -29,24 +29,26 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("poseidon.cu", "smt.cu", "eddsa.cu", "sha256.cu",
-           "poseidon_rounds.cu", "mont_rate.cu")
+           "poseidon_rounds.cu", "mont_rate.cu", "ay_sign.cu")
 HEADERS = ("field.cuh", "poseidon.cuh", "funcs.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> launches made by its wrapper; reset with reset_launches()
 launches = {"poseidon_permute": 0, "smt_chain": 0, "eddsa_check": 0,
             "sha256_chain": 0, "poseidon_rounds_vpu": 0,
-            "poseidon_rounds_mxu": 0}
-# the kernels that RollupEngine.run launches; the other two belong to the
-# full-round experiment (circuits_tpu_torch/scripts/exp_mxu_inkernel.py)
-MAIN_PATH = ("poseidon_permute", "smt_chain", "eddsa_check", "sha256_chain")
+            "poseidon_rounds_mxu": 0, "ay_sign_to_ax": 0}
+# the kernels that RollupEngine.run launches; the rounds kernels belong to
+# the full-round experiment (circuits_tpu_torch/scripts/exp_mxu_inkernel.py)
+MAIN_PATH = ("poseidon_permute", "smt_chain", "eddsa_check", "sha256_chain",
+             "ay_sign_to_ax")
 # C function that reports a source's __global__ functions (csrc/funcs.cuh)
 # -> the launches key of each, in the order it writes their handles
 FUNCS = {"ctpu_poseidon_funcs": ("poseidon_permute", "poseidon_permute"),
          "ctpu_smt_funcs": ("smt_chain",),
          "ctpu_eddsa_funcs": ("eddsa_check",),
          "ctpu_sha256_funcs": ("sha256_chain", "sha256_chain"),
-         "ctpu_rounds_funcs": ("poseidon_rounds_vpu", "poseidon_rounds_mxu")}
+         "ctpu_rounds_funcs": ("poseidon_rounds_vpu", "poseidon_rounds_mxu"),
+         "ctpu_ay_sign_funcs": ("ay_sign_to_ax",)}
 
 _lib = None
 _prepared: dict[int, torch.Tensor] = {}
@@ -137,6 +139,7 @@ def lib() -> ctypes.CDLL:
             "ctpu_rounds_vpu": [P, P, I, L, P],
             "ctpu_rounds_mxu": [P, P, P, I, L, P],
             "ctpu_mont_rate": [P, I, I, I, I, P],
+            "ctpu_ay_sign_to_ax": [P, P, P, P, L, P],
             **{name: [P] for name in FUNCS},
         }
         for name, argtypes in sigs.items():

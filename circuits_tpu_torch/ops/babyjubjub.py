@@ -8,6 +8,9 @@ plain version `eddsa_ok_mont_plain` uses the same algorithm: fixed-base
 comb over the host table, windowed variable-base Horner. The kernel walks
 the curve in its a = 1 form (x scaled by sqrt(a)), where every Y and Z is
 the plain version's and every X is sqrt(a) times it; the verdict is the same.
+Bits2Point_Strict's x from y and the sign runs in `ay_sign_to_ax`, the
+wrapper of the AySign2Ax kernel (csrc/ay_sign.cu), one thread a lane, whose
+plain version `ay_sign_to_ax_plain` takes the same steps.
 
 The module's public point operations (`identity`, `from_affine_mont`,
 `pselect`, `points_equal`, `scalar_mul_var`, `scalar_mul_base8`) are plain
@@ -268,7 +271,7 @@ def eddsa_ok_mont(ax_m, ay_m, s, r8x_m, r8y_m, hm):
     return ok.bool()
 
 
-def ay_sign_to_ax(ay, sign):
+def ay_sign_to_ax_plain(ay, sign):
     """Batched AySign2Ax: recover x from y and the sign bit. Returns
     (ax canonical, on_curve (batch,) bool)."""
     ym = fr.to_mont(ay)
@@ -284,6 +287,26 @@ def ay_sign_to_ax(ay, sign):
     root, ok = fr.sqrt(x2)
     ax = fr.select(sign, fr.neg(root), root)
     return ax, ok & ~den_zero
+
+
+def ay_sign_to_ax(ay, sign):
+    """Wrapper of the AySign2Ax kernel (csrc/ay_sign.cu): ay canonical
+    (16, B) int64, sign (B,) bool; results as `ay_sign_to_ax_plain`."""
+    dev = ay.device
+    b = ay.shape[-1]
+    kernels.require(ay, "ay", torch.int64, (N_LIMBS, b), dev)
+    kernels.require(sign, "sign", torch.bool, (b,), dev)
+    if dev.type == "cpu":
+        return ay_sign_to_ax_plain(ay, sign)
+    if dev.type != "cuda":
+        raise ValueError(f"ay_sign_to_ax: unsupported device {dev}")
+    so = kernels.prepare(dev)
+    ax = torch.empty((N_LIMBS, b), dtype=torch.int64, device=dev)
+    ok = torch.empty((b,), dtype=torch.bool, device=dev)
+    kernels.launch("ay_sign_to_ax", so.ctpu_ay_sign_to_ax(
+        kernels.ptr(ay), kernels.ptr(sign), kernels.ptr(ax), kernels.ptr(ok),
+        b, kernels.stream_ptr(dev)))
+    return ax, ok
 
 
 def eddsa_poseidon_verify(enabled, ax, ay, s, r8x, r8y, msg):

@@ -33,8 +33,9 @@ circomlib-internal constraints (Poseidon S-boxes, SMT hash chains,
 EdDSA, SHA256 wiring, Num2Bits bit binarity, IsZero inverse pinning)
 are all of the "by-construction" class -- the engine evaluates those
 gadgets as functions -- EXCEPT the proof-validity relations, which are
-runtime residuals listed in EXTRA_RESIDUALS. Of the kernels, only K3
-(csrc/eddsa.cu) decides one: K2 (csrc/smt.cu) returns the chains' roots,
+runtime residuals listed in EXTRA_RESIDUALS. Of the kernels, K3
+(csrc/eddsa.cu) and AySign2Ax (csrc/ay_sign.cu, Bits2Point_Strict's
+on-curve flag) decide one each: K2 (csrc/smt.cu) returns the chains' roots,
 and `ops/smt.py:processor_check` holds them against the old root.
 
 `report()` prints the audit beside the analytic counting model of the
@@ -240,6 +241,9 @@ KERNEL_ANCHORS = {
     "circomlib EdDSAPoseidonVerifier identity": (
         "circuits_tpu_torch/csrc/eddsa.cu",
         "ok[b] = ((eq >> gbase) & 0xfu) == 0xfu"),
+    "circomlib Bits2Point_Strict on-curve": (
+        "circuits_tpu_torch/csrc/ay_sign.cu",
+        "ok[b] = (found || z) && !den_zero"),
 }
 
 

@@ -1,6 +1,7 @@
-"""Hard inputs for the EdDSA check (kernel K3, ops/babyjubjub.py), built
-from the host curve code: the same lanes go to the plain version against the
-JAX package on the CPU, to the kernel against the plain version on the card
+"""Hard inputs for the EdDSA check (kernel K3, ops/babyjubjub.py) and for
+AySign2Ax (its kernel in csrc/ay_sign.cu), built from the host curve code:
+the same lanes go to the plain version against the JAX package on the CPU,
+to the kernel against the plain version on the card
 (tests/test_torch_eddsa.py, tests/test_torch_cuda.py) and to chip_smoke.py.
 """
 
@@ -56,3 +57,36 @@ def kernel_args(rows, dev):
                                for k in range(6))
     m = [fr.to_mont(c).contiguous() for c in (ax, ay, r8x, r8y)]
     return (m[0], m[1], s.contiguous(), m[2], m[3], hm.contiguous())
+
+
+def _x2(y: int) -> int:
+    """AySign2Ax's x^2 = (1 - y^2) / (A - D y^2) (den 0 read as 1)."""
+    y2 = y * y % scalar.P
+    den = (babyjub.A - babyjub.D * y2) % scalar.P or 1
+    return (1 - y2) * pow(den, -1, scalar.P) % scalar.P
+
+
+def den_zero_y():
+    """A y with A - D y^2 = 0, or None: there is one only where A / D is a
+    square mod p, and for BabyJubJub it is not."""
+    r = babyjub.A * pow(babyjub.D, -1, scalar.P) % scalar.P
+    return scalar.fsqrt(r) if scalar.is_square(r) else None
+
+
+def ay_sign_lanes(rng, lanes):
+    """`lanes` lanes of AySign2Ax as (ays, signs), integer lists: first the
+    edge lanes, each kind with both signs -- a point's y, y = 1 and p - 1
+    (x^2 = 0: the root 0, negated to 0), y = 0 (x^2 = 1 / A), y values whose
+    x^2 is a non-residue (ax 0, not ok), the y of `den_zero_y` where there
+    is one -- then random field elements with random signs."""
+    p = scalar.P
+    pt = babyjub.mul_point(rng.randrange(1, babyjub.SUB_ORDER), babyjub.BASE8)
+    non = [y for y in range(2, 60) if not scalar.is_square(_x2(y))][:2]
+    edge = [pt[1], 1, non[0], 0, p - 1, non[1]]
+    if den_zero_y() is not None:
+        edge.append(den_zero_y())
+    rows = [(y, sign) for sign in (1, 0) for y in edge]
+    rows += [(rng.randrange(p), rng.randrange(2))
+             for _ in range(max(0, lanes - len(rows)))]
+    rows = rows[:lanes]
+    return [y for y, _ in rows], [sign for _, sign in rows]

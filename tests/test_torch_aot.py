@@ -7,7 +7,7 @@ CPU, where there is no CUDA graph:
 - the capture-safety mirror: a second `run_packed` of RollupMain and of
   Withdraw under a `TorchDispatchMode` records no op that a CUDA-graph
   capture refuses (a tensor made from host data, a value read back, a shape
-  that depends on data). The plain versions of K1-K4 are left out: they run
+  that depends on data). The kernels' plain versions are left out: they run
   only on the CPU, and on the card the kernels take their place;
 - `CapturedCall`'s bookkeeping (copy-in, the first call op by op, the
   capture at the second, replays, cloned outputs) with the capture and
@@ -114,7 +114,7 @@ def test_capture_safety_mirror(monkeypatch, batches, withdraw_lanes, path):
     run()  # warm-up: the tables and constants are built here
     rec = record_ops(monkeypatch, run)
     print(f"{path}: {rec.count} aten ops a batch outside the plain versions "
-          "of K1-K4")
+          "of the kernels")
     assert rec.count > 1000
     assert not rec.refused, sorted(rec.refused.items())
 
@@ -276,7 +276,8 @@ def test_every_kernel_reports_its_handle():
     sources = {"ctpu_poseidon_funcs": "poseidon.cu",
                "ctpu_smt_funcs": "smt.cu", "ctpu_eddsa_funcs": "eddsa.cu",
                "ctpu_sha256_funcs": "sha256.cu",
-               "ctpu_rounds_funcs": "poseidon_rounds.cu"}
+               "ctpu_rounds_funcs": "poseidon_rounds.cu",
+               "ctpu_ay_sign_funcs": "ay_sign.cu"}
     assert sorted(sources) == sorted(kernels.FUNCS)
     assert set(kernels.SOURCES) - set(sources.values()) == {"mont_rate.cu"}
     assert "funcs.cuh" in kernels.HEADERS

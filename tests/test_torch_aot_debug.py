@@ -218,7 +218,7 @@ def test_capture_safety_mirror(monkeypatch, request, inputs, path):
         packed = eng.pack(lanes["A"])
     rec = record_ops(monkeypatch, lambda: call(packed))
     print(f"{path}: {rec.count} aten ops a call outside the plain versions "
-          "of K1-K4")
+          "of the kernels")
     assert rec.count > 1000
     assert not rec.refused, sorted(rec.refused.items())
 

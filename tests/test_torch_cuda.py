@@ -1,7 +1,7 @@
-"""The CUDA kernels K1-K6 against their plain PyTorch versions on the card,
-the suite's batches through `RollupEngine` on `cuda`, withdrawals through
-`WithdrawEngine` on `cuda`, `trace` on `cuda` against `trace` on the
-CPU, the sharded path in a world of one over NCCL against
+"""The CUDA kernels K1-K6 and AySign2Ax against their plain PyTorch
+versions on the card, the suite's batches through `RollupEngine` on `cuda`,
+withdrawals through `WithdrawEngine` on `cuda`, `trace` on `cuda` against
+`trace` on the CPU, the sharded path in a world of one over NCCL against
 `run_packed`, and the engines' captured CUDA graphs (`engine/aot.py`),
 the debug routes' among them, against their eager route and the builder.
 These tests need a CUDA device and skip without one. They import no JAX,
@@ -116,6 +116,30 @@ def test_eddsa_kernel_edge_lanes(cuda, lanes):
     assert_same(got, babyjubjub.eddsa_ok_mont_plain(*args))
     for (name, _, want), ok in zip(edge, got.tolist()):
         assert want is None or ok == want, name
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 2049])
+def test_ay_sign_kernel_matches_plain(cuda, lanes):
+    """AySign2Ax's kernel against its plain version, limb for limb over ax
+    and ok, and against the host's scalar version: a point's y, y = 0, 1 and
+    p - 1, y values whose x^2 is a non-residue, each with both signs, then
+    random field elements; one lane, a part of a warp, a ragged last block
+    past the main path's 2,048. No lane has den = A - D y^2 = 0: A / D is a
+    non-residue mod p, so no y gives y^2 = A / D."""
+    from circuits_tpu_torch.r1cs import witness_check as wc
+
+    assert eddsa_cases.den_zero_y() is None
+    ays, signs = eddsa_cases.ay_sign_lanes(random.Random(lanes), lanes)
+    ay = fr.pack(ays).to(cuda)
+    sign = torch.tensor(signs, dtype=torch.bool, device=cuda)
+    kernels.reset_launches()
+    got = babyjubjub.ay_sign_to_ax(ay, sign)
+    assert kernels.launches["ay_sign_to_ax"] == 1
+    assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool
+    assert_same(got, babyjubjub.ay_sign_to_ax_plain(ay, sign))
+    host = [wc._ay_sign_to_ax(y, g) for y, g in zip(ays[:64], signs)]
+    assert [(int(x), bool(k)) for x, k in zip(
+        fr.unpack_np(got[0].cpu())[:64], got[1].tolist())] == host
 
 
 # (lanes, blocks): both routes of the kernel ("edge" is the last lane count
@@ -288,10 +312,14 @@ def test_captured_rollup_main_equals_eager_and_builder(cuda, monkeypatch):
     assert kernels.launches == eager_launches
     assert graph.counts == eager_launches and graph.nodes > 1000
     assert all(graph.counts[k] > 0 for k in kernels.MAIN_PATH), graph.counts
+    # AySign2Ax is one node, where its plain version was some 180,000
+    assert graph.counts["ay_sign_to_ax"] == 1 and graph.nodes < 10_000, \
+        (graph.counts, graph.nodes)
     assert engine.compile() is graph and graph.replays == 1
     kernels.reset_launches()
     for mod, name in ((poseidon, "permute_mont"), (smt, "processor_chain"),
                       (babyjubjub, "eddsa_ok_mont"),
+                      (babyjubjub, "ay_sign_to_ax"),
                       (sha256, "sha256_chain"), (witness, "rollup_main")):
         monkeypatch.setattr(mod, name, _no_wrapper)
     outs += [engine.run_packed(p) for p in packs[2:]]
@@ -409,6 +437,7 @@ def test_captured_debug_routes_equal_eager_and_share_one_pool(cuda):
         outs = [call(p) for p in (pb, pa, pbad)]
         assert not any(kernels.launches.values()), kernels.launches
         assert call.counts == launches and call.replays == 3
+        assert call.counts["ay_sign_to_ax"] == 1, call.counts
         for out, p in zip([first] + outs, (pa, pb, pa, pbad)):
             assert_same(out, eager(p))
         got.append(outs[1])

@@ -7,6 +7,7 @@ schedule of four threads a lane on the curve's a = 1 form, mirrored in Python
 integers, with its comb block. Exact."""
 
 import random
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,9 +20,10 @@ from circuits_tpu.field import fr as jfr
 from circuits_tpu.field.scalar import P
 from circuits_tpu.ops import babyjubjub as jbjj
 from circuits_tpu.ops.poseidon_constants import poseidon_py
-from circuits_tpu_torch import convert
+from circuits_tpu_torch import convert, kernels
 from circuits_tpu_torch.field import fr
 from circuits_tpu_torch.ops import babyjubjub as bjj
+from circuits_tpu_torch.r1cs import witness_check as wc
 from circuits_tpu_torch.scripts import eddsa_cases
 
 from torch_compare import assert_same, to_torch
@@ -127,19 +129,162 @@ def test_valid_lanes_agree_with_host_verifier(lanes, verdicts):
             assert bool(got[i]) == host, (i, kind)
 
 
-def test_ay_sign_to_ax_matches_jax():
+def _ay_sign_lanes():
+    """(pts, ays, signs): on-curve points' y values and y values that are
+    not, then AySign2Ax's edge lanes (`eddsa_cases.ay_sign_lanes`: y = 0, 1
+    and p - 1, y values whose x^2 is a non-residue, each with both signs)."""
     rng = np.random.default_rng(5)
     pts = [babyjub.mul_point(int(k), babyjub.BASE8)
            for k in rng.integers(1, 2**60, size=6)]
-    # on-curve y values with both signs, then y values that are not
     ays = [p[1] for p in pts] + [int(v) for v in rng.integers(2, 2**60, 4)]
-    signs = np.array([i % 2 for i in range(len(ays))], np.uint32)
+    signs = [i % 2 for i in range(len(ays))]
+    edge_ays, edge_signs = eddsa_cases.ay_sign_lanes(random.Random(5), 12)
+    return pts, ays + edge_ays, signs + edge_signs
+
+
+def test_ay_sign_to_ax_matches_jax():
+    pts, ays, signs = _ay_sign_lanes()
+    signs = np.array(signs, np.uint32)
     ay = jfr.pack_np(ays)
     got = bjj.ay_sign_to_ax(to_torch(ay), to_torch(signs).bool())
     assert_same(got, jbjj.jay_sign_to_ax(ay, signs.astype(bool)))
     for i, p in enumerate(pts):
         x = int(fr.unpack_np(got[0])[i])
         assert x in (p[0], (P - p[0]) % P) and bool(got[1][i])
+    # the host's scalar version on every lane (no y has den = 0: A / D is a
+    # non-residue)
+    want = [wc._ay_sign_to_ax(y, int(sg)) for y, sg in zip(ays, signs)]
+    assert [(int(x), bool(k)) for x, k in zip(
+        fr.unpack_np(got[0]), got[1].tolist())] == want
+    assert {k for _, k in want} == {True, False}
+
+
+def test_ay_sign_wrapper_takes_the_plain_version_on_cpu(monkeypatch):
+    """CPU tensors go to `ay_sign_to_ax_plain` as they are (a stub here, so
+    nothing is computed); another device, a shape or a dtype the kernel does
+    not take raise."""
+    seen = []
+    monkeypatch.setattr(bjj, "ay_sign_to_ax_plain",
+                        lambda ay, sign: seen.append((ay, sign)) or "plain")
+    ay = torch.zeros((16, 3), dtype=torch.int64)
+    sign = torch.zeros((3,), dtype=torch.bool)
+    assert bjj.ay_sign_to_ax(ay, sign) == "plain"
+    assert seen[0][0] is ay and seen[0][1] is sign
+    bad = [(ay.to("meta"), sign.to("meta"), ValueError),
+           (ay[:, :2], sign, ValueError),
+           (ay[:15], sign, ValueError),
+           (ay.int(), sign, TypeError),
+           (ay, sign.long(), TypeError),
+           (ay, sign[:2], ValueError),
+           (ay.T.contiguous().T, sign, ValueError)]
+    for a, sg, err in bad:
+        with pytest.raises(err):
+            bjj.ay_sign_to_ax(a, sg)
+    assert len(seen) == 1
+
+
+# ---- the AySign2Ax kernel's steps, mirrored in Python integers ---------------
+#
+# csrc/ay_sign.cu walks a lane in one thread on Montgomery words. The mirror
+# takes its constants from the source itself and its steps in the kernel's
+# order: the powers least significant bit first with both products a step,
+# a^Q and a^((Q + 1) / 2) from one power a^((Q - 1) / 2), Tonelli-Shanks
+# with r c and c^2 formed ahead of b.
+
+AY_SIGN_CU = (kernels.CSRC / "ay_sign.cu").read_text()
+MONT_R = 1 << 256
+
+
+def _cu_words(name):
+    body = re.search(rf"__constant__ uint32_t {name}\[8\] = \{{([^}}]*)\}};",
+                     AY_SIGN_CU).group(1)
+    words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+    assert len(words) == 8
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def _cu_int(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         AY_SIGN_CU).group(1))
+
+
+def _mm(a, b):
+    return a * b * pow(MONT_R, -1, P) % P
+
+
+def _mirror_pow(a, e, nbits):
+    acc, base = MONT_R % P, a
+    for i in range(nbits):
+        prod, base = _mm(acc, base), _mm(base, base)
+        acc = prod if (e >> i) & 1 else acc
+    return acc
+
+
+def _mirror_ay_sign(ay, sign):
+    """`ay_sign_to_ax_kernel` for one lane."""
+    one = MONT_R % P
+    u = _mm(ay, MONT_R * MONT_R % P)
+    u = _mm(u, u)
+    num = (one - u) % P
+    den = (_cu_words("AS_A_M") - _mm(_cu_words("AS_D_M"), u)) % P
+    den_zero = den == 0
+    den = one if den_zero else den
+    a = _mm(num, _mirror_pow(den, _cu_words("AS_EXP_INV"),
+                             _cu_int("AS_EXP_INV_BITS")))
+    z = a == 0
+    a = one if z else a
+    w = _mirror_pow(a, _cu_words("AS_EXP_HALF"), _cu_int("AS_EXP_HALF_BITS"))
+    r = _mm(w, a)
+    t = _mm(w, r)
+    c = _cu_words("AS_ROOT_M")
+    for i in range(_cu_int("AS_TWO_ADICITY"), 1, -1):
+        u, c = _mm(r, c), _mm(c, c)
+        b = t
+        for _ in range(i - 2):
+            b = _mm(b, b)
+        r = r if b == one else u
+        u = _mm(t, c)
+        t = t if b == one else u
+    found = _mm(r, r) == a and not z
+    r = _mm(r, 1)
+    r = 0 if z or not found else r
+    r = min(r, (P - r) % P)
+    r = (P - r) % P if sign else r
+    return r, (found or z) and not den_zero
+
+
+def test_ay_sign_kernel_constants():
+    """The source's exponents, curve constants and root of unity are the
+    values the plain version uses; no __global__ name holds a name by which
+    the benchmark counts K1-K4 (it counts this kernel with the field ops)."""
+    q = (P - 1) >> 28
+    assert _cu_int("AS_TWO_ADICITY") == 28 and q % 2 == 1
+    assert _cu_words("AS_EXP_INV") == P - 2
+    assert _cu_int("AS_EXP_INV_BITS") == (P - 2).bit_length()
+    assert _cu_words("AS_EXP_HALF") == (q - 1) // 2
+    assert _cu_int("AS_EXP_HALF_BITS") == ((q - 1) // 2).bit_length()
+    assert _cu_words("AS_A_M") == babyjub.A * MONT_R % P
+    assert _cu_words("AS_D_M") == babyjub.D * MONT_R % P
+    root = pow(5, q, P)
+    assert pow(5, (P - 1) // 2, P) == P - 1
+    assert _cu_words("AS_ROOT_M") == root * MONT_R % P
+    # A / D is a non-residue: no y makes den = 0
+    assert pow(babyjub.A * pow(babyjub.D, -1, P) % P, (P - 1) // 2, P) \
+        == P - 1
+    names = re.findall(r"__global__ void(?:\s+__launch_bounds__\([^)]*\))?"
+                       r"\s+(\w+)\(", AY_SIGN_CU)
+    assert names == ["ay_sign_to_ax_kernel"]
+    for k in ("poseidon_permute_kernel", "smt_chain_kernel", "eddsa_kernel",
+              "sha256_chain"):
+        assert k not in names[0]
+
+
+def test_ay_sign_kernel_mirror_equals_host():
+    """The kernel's steps give the host's AySign2Ax on every lane kind."""
+    _, ays, signs = _ay_sign_lanes()
+    more_ays, more_signs = eddsa_cases.ay_sign_lanes(random.Random(17), 24)
+    for y, sg in zip(ays + more_ays + [P - 2], signs + more_signs + [1]):
+        assert _mirror_ay_sign(y, sg) == wc._ay_sign_to_ax(y, sg), (y, sg)
 
 
 def test_point_ops_match_host():

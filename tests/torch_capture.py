@@ -19,10 +19,11 @@ from circuits_tpu_torch.ops import babyjubjub, poseidon, sha256, smt
 REFUSED = {"lift_fresh", "lift_fresh_copy", "_local_scalar_dense", "nonzero",
            "masked_select", "equal", "is_nonzero", "_unique2",
            "unique_consecutive", "unique_dim", "bincount"}
-# the plain versions of K1-K4: they run only on the CPU, and on the card
-# the kernels take their place
+# the plain versions of K1-K4 and AySign2Ax: they run only on the CPU, and
+# on the card the kernels take their place
 PLAIN = ((poseidon, "permute_mont_plain"), (smt, "processor_chain_plain"),
-         (babyjubjub, "eddsa_ok_mont_plain"), (sha256, "sha256_chain_plain"))
+         (babyjubjub, "eddsa_ok_mont_plain"), (sha256, "sha256_chain_plain"),
+         (babyjubjub, "ay_sign_to_ax_plain"))
 
 
 class OpRecorder(TorchDispatchMode):
@@ -52,7 +53,7 @@ class OpRecorder(TorchDispatchMode):
 
 
 def record_ops(monkeypatch, run) -> OpRecorder:
-    """`run()` under an OpRecorder, the plain versions of K1-K4 paused:
+    """`run()` under an OpRecorder, the kernels' plain versions paused:
     they run with the mode taken off, so their ops are neither recorded
     nor slowed by it."""
     rec = OpRecorder()
