@@ -26,9 +26,10 @@ Phases (any failure raises, and the exit code is then non-zero):
     lanes and timed at 2048;
  4. build a RollupMain(2048, 32, 256, 64) batch with the port's builder
     (2048 accounts by L1 deposits, 2048 signed L2 transfers, one fee
-    token), run `RollupEngine(...).run` on the card (the engine's first
-    batch, op by op), hold the hash, roots and newLastIdx exactly against
-    the builder, and require that every kernel of that path
+    token), run `RollupEngine.run` on the card (the engine's first batch,
+    op by op; the engine that `check_batch` keeps for this circuit and
+    card, `checker.engine_for`), hold the hash, roots and newLastIdx
+    exactly against the builder, and require that every kernel of that path
     (kernels.MAIN_PATH) was launched during that run; then the second
     batch, which captures the engine as a CUDA graph (engine/aot.py: timed,
     its node count and memory kept for phase 13) and replays it: the
@@ -63,22 +64,22 @@ Phases (any failure raises, and the exit code is then non-zero):
     and K4 calls recorded on the eager route; `run_packed` timed (median of
     5, each ending in a host copy of the hashes), and its layers (state
     hash, verifier, hash) each on their own;
- 9. the compiled debug routes (engine/aot.py) on phase 4's engine and
+ 9. the compiled debug route (engine/aot.py) on phase 4's engine and
     batch A and a second production batch B from the seed (phase 13's):
-    `trace_call` (`trace` / `get_signal`), `debug_call` (`_full_debug`)
-    and `check_batch`'s compiled check, each run A op by op (the warm-up,
-    its wrapper launches counted), captured at B (recording,
-    instantiation, node count, the kernel nodes read from the graph equal
-    to those launches, the reserved memory before and after, the static
-    outputs' and inputs' bytes) and replayed on A, B and A equal to the
-    eager route limb for limb, then a replay median of 5 beside the eager
-    route's median of 3 with `max_memory_allocated` of each; then the
-    entry points as replays: `_full_debug` gives `run`'s outputs and
-    verdict and B's the builder's, `trace` agrees with the builder's input
-    on lane_ok, decode.fromIdx and the chain of newStateRoot, `get_signal`
-    one lane, `check_batch` on phase 5's tampered batch names lane 5 and no
-    other; the main graph, `debug_call`, `trace_call` and the main graph
-    replayed in turns out of the engine's one pool, each exact;
+    `debug_call`, the one debug evaluation of RollupMain, run on A op by
+    op (the warm-up, its wrapper launches counted), captured at B
+    (recording, instantiation, node count, the kernel nodes read from the
+    graph equal to those launches, the reserved memory before and after,
+    the static outputs' and inputs' bytes) and replayed on A, B and A
+    equal to the eager route limb for limb, then a replay median of 5
+    beside the eager route's median of 3 with `max_memory_allocated` of
+    each; then every entry point that reads it, each one replay:
+    `_full_debug` gives `run`'s outputs and verdict and B's the builder's,
+    `trace` agrees with the builder's input on lane_ok, decode.fromIdx and
+    the chain of newStateRoot, `get_signal` one lane, `check_batch` on
+    phase 5's tampered batch names lane 5 and no other; the main graph,
+    `debug_call` and the main graph replayed in turns out of the engine's
+    one pool, each exact;
     `export_witness` + `write_wtns` at RollupMain(2048, 32, 256, 64)
     through the replayed `_full_debug`, its device part and host assembly
     apart; then the witness vector at a smaller depth with the widths
@@ -90,11 +91,12 @@ Phases (any failure raises, and the exit code is then non-zero):
     capture at a batch with 64 lanes tampered (exactly those refused
     through the graph, every hash the builder's), hash, ok and state_hash
     replayed equal to the eager route, both routes timed; then the check
-    at maxFeeTx = 1 (RollupMain(2, 16, 1, 1)), a fresh compiled check on a
-    valid batch and on one with the fee recipient's balance3 + 7 (op by
-    op, the capture, both replayed and timed), `fee_ok` [True] and
-    [False] of shape (1,), and `check_batch_sharded` in a world of one
-    over NCCL giving the same masks;
+    at maxFeeTx = 1 (RollupMain(2, 16, 1, 1)), a fresh engine's
+    `debug_call` under `check_batch` on a valid batch and on one with the
+    fee recipient's balance3 + 7 (op by op, the capture, both replayed and
+    timed), `fee_ok` [True] and [False] of shape (1,), and
+    `check_batch_sharded` in a world of one over NCCL giving the same
+    masks;
 10. the modules with no kernel of their own, on the card: the BabyJubJub
     point operations (`scalar_mul_base8` and `scalar_mul_var` of BASE8 on
     1024 random scalars below the subgroup order, `points_equal` on every
@@ -141,8 +143,8 @@ functions, so `library_ms` is null in every row.
 The line before the last is {"kernels": [...]} (each row also with the
 kernel nodes of phase 4's graph, of the 32768-lane Withdraw graph, its
 launches in phase 12's world of one, and the kernel nodes of phase 9's
-debug graphs: `trace_call`, `debug_call`, `check_batch`'s and Withdraw's
-`run_debug` at 32768 lanes);
+debug graphs: RollupMain's `debug_call` and Withdraw's `run_debug` at
+32768 lanes);
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1084,38 +1086,32 @@ def drive_route(name, call, eager, packed, packed_b, card):
 
 def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
                       wpacked, card):
-    """Phase 9: the compiled debug routes on the production batch --
-    `trace` / `get_signal` (`trace_call`), `_full_debug` (`debug_call`) and
-    `check_batch` (its compiled check) -- each driven by `drive_route`,
-    then through its entry point as a replay; the engine's graphs replayed
-    in turns out of the one pool; `export_witness` at this shape; the
-    witness vectors at a smaller depth; Withdraw's `run_debug` on phase 8's
-    lanes. Returns each graph's kernel nodes by kernel."""
-    n_tx, n_levels, _, max_fee = engine.params
+    """Phase 9: the engine's one compiled debug route, `debug_call`, on
+    the production batch, driven by `drive_route`; then every entry point
+    that reads it -- `_full_debug`, `trace` / `get_signal` and
+    `check_batch`, whose engine `engine` is -- as a replay; the engine's
+    two graphs replayed in turns out of its one pool; `export_witness` at
+    this shape; the witness vectors at a smaller depth; Withdraw's
+    `run_debug` on phase 8's lanes. Returns each debug graph's kernel nodes
+    by kernel."""
+    n_tx, _, _, max_fee = engine.params
+    assert checker.engine_for(engine.params, engine.device) is engine
+    call = engine.debug_call
     packed, packed_b = engine.pack(inp), engine.pack(bb_b.get_input())
     mib = 2.0 ** 20
-    print(f"compiled debug routes on RollupMain{engine.params} (A the "
+    print(f"compiled debug route on RollupMain{engine.params} (A the "
           "production batch, B phase 13's second one):", flush=True)
-    trace_a, _ = drive_route("trace_call", engine.trace_call,
-                             engine._trace_lanes_eager, packed, packed_b,
-                             card)
-    debug_a, debug_b = drive_route("debug_call", engine.debug_call,
-                                   engine._full_debug_eager, packed,
-                                   packed_b, card)
-    check = checker.compiled_check(engine.params, engine.device)
-    drive_route("check_batch", check,
-                lambda p: checker.check_masks(p, n_tx, n_levels, max_fee),
-                packed, packed_b, card)
+    debug_a, debug_b = drive_route("debug_call", call, engine.debug_eager,
+                                   packed, packed_b, card)
 
-    # the entry points, each a replay: no wrapper runs
+    # the entry points, each one replay of debug_call: no wrapper runs
     kernels.reset_launches()
-    replays = (engine.trace_call.replays, engine.debug_call.replays,
-               check.replays)
+    replays = call.replays
     t0 = time.perf_counter()
     lanes, lane_ok, dout, ok = engine._full_debug(inp)
     assert bool(ok) and bool(lane_ok.all())
     assert engine.unpack_outputs(dout) == out, "_full_debug != run"
-    _, _, dout_b, ok_b = debug_b
+    _, _, dout_b, ok_b, _ = debug_b
     assert bool(ok_b)
     want_b = {"hash_global_inputs": bb_b.get_hash_inputs(),
               "new_state_root": bb_b.get_new_state_root(),
@@ -1143,10 +1139,8 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
     assert check_batch(packed, *engine.params)["ok"]
     t_check = time.perf_counter() - t0
     assert not any(kernels.launches.values()), kernels.launches
-    assert (engine.trace_call.replays, engine.debug_call.replays,
-            check.replays) == (replays[0] + 2, replays[1] + 1,
-                               replays[2] + 2)
-    print(f"entry points through the graphs (replays, no wrapper called): "
+    assert call.replays == replays + 5, (call.replays, replays)
+    print(f"entry points through debug_call (5 replays, no wrapper called): "
           f"_full_debug == run and the builder's hash and roots on A and B "
           f"({t_debug:.3f} s); trace: lane_ok all True, decode.fromIdx and "
           f"the chain of newStateRoot as the builder's input, get_signal one "
@@ -1154,24 +1148,21 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
           f"check_batch on phase 5's tampered batch: lane 5 alone, fee_ok "
           f"all True, then A passes ({t_check:.3f} s for both)", flush=True)
 
-    # the engine's graphs in turns out of its one pool, each exact
+    # the engine's two graphs in turns out of its one pool, each exact
     main_a, main_ok = engine.run_packed(packed)
     assert bool(main_ok) and bool(debug_a[3])
     same_tree(main_a, {k: debug_a[2][k] for k in main_a},
               "the main graph vs debug_call's outputs")
-    refs = {"main": (main_a, main_ok), "debug_call": debug_a,
-            "trace_call": trace_a}
+    refs = {"main": (main_a, main_ok), "debug_call": debug_a}
     routes = {"main": lambda: engine.run_packed(packed),
-              "debug_call": lambda: engine.debug_call(packed),
-              "trace_call": lambda: engine.trace_call(packed)}
-    for name in ("main", "debug_call", "trace_call", "main"):
+              "debug_call": lambda: call(packed)}
+    for name in ("main", "debug_call", "main"):
         same_tree(routes[name](), refs[name], f"interleaved {name}")
-    assert engine.call.pool is engine.debug_call.pool is \
-        engine.trace_call.pool is not None
-    print(f"shared pool: the main graph, debug_call, trace_call, the main "
-          f"graph replayed in turns, each exact; reserved memory "
-          f"{kept_memory() / mib:.1f} MiB with the engine's three graphs and "
-          f"the check's", flush=True)
+    assert engine.call.pool is call.pool is not None
+    print(f"shared pool: the main graph, debug_call, the main graph "
+          f"replayed in turns, each exact; reserved memory "
+          f"{kept_memory() / mib:.1f} MiB with the engine's two graphs",
+          flush=True)
 
     # the witness vector at this shape, through the replayed _full_debug
     replayed = engine._full_debug
@@ -1258,7 +1249,7 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
 
     # Withdraw's run_debug at phase 8's width
     n = len(wlanes)
-    call = wengine.debug_call_for(n)
+    wcall = wengine.debug_call_for(n)
     bad_w, kinds = list(wlanes), {}
     pick = random.Random(SEED + 9)
     for j, lane in enumerate(sorted(pick.sample(range(n), 64))):
@@ -1280,24 +1271,26 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
     t_capture = time.perf_counter() - t0
     after = kept_memory()
     assert not any(kernels.launches.values()), kernels.launches
-    assert call.counts == launches, (call.counts, launches)
+    assert wcall.counts == launches, (wcall.counts, launches)
     assert np.flatnonzero(~ok).tolist() == sorted(kinds), \
         "the refused lanes are not the tampered ones"
     assert hashes == [hash_inputs_withdraw(d) for d in bad_w]
-    same_tree(call(wpacked),
+    same_tree(wcall(wpacked),
               wengine.run_packed_eager(wpacked, debug=True),
               "Withdraw debug: replayed vs eager")
 
     eager_t, eager_mem = route_times(
         lambda: wengine.run_packed_eager(wpacked, debug=True), reps=3)
-    graph_t, graph_mem = route_times(lambda: call(wpacked))
+    graph_t, graph_mem = route_times(lambda: wcall(wpacked))
     print(f"Withdraw({N_LEVELS}) x {n} run_debug on {card}: first call (op "
           f"by op, pack included) {t_first:.3f} s, launches {launches}; "
           f"capture at the second {t_capture:.3f} s with its pack and replay "
-          "(" + ", ".join(f"{k} {v:.3f} s" for k, v in call.seconds.items())
-          + f"), {call.nodes} nodes, kernel nodes {call.counts}; every hash "
-          f"the builder's, {len(kinds)} tampered lanes and only those refused "
-          f"through the graph; hash, ok and state_hash replayed == eager; "
+          "(" + ", ".join(f"{k} {v:.3f} s"
+                          for k, v in wcall.seconds.items())
+          + f"), {wcall.nodes} nodes, kernel nodes {wcall.counts}; every "
+          f"hash the builder's, {len(kinds)} tampered lanes and only those "
+          f"refused through the graph; hash, ok and state_hash replayed == "
+          f"eager; "
           f"replay median {statistics.median(graph_t):.4f} s "
           f"{['%.4f' % t for t in graph_t]} (max_memory_allocated "
           f"{graph_mem / mib:.1f} MiB), eager median "
@@ -1305,10 +1298,8 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
           f"{['%.4f' % t for t in eager_t]} (max_memory_allocated "
           f"{eager_mem / mib:.1f} MiB); reserved {reserved / mib:.1f} -> "
           f"{after / mib:.1f} MiB over the capture; static outputs "
-          f"{storage_bytes(call.outputs) / mib:.1f} MiB", flush=True)
-    return {"trace": engine.trace_call.counts,
-            "debug": engine.debug_call.counts, "check": check.counts,
-            "withdraw_debug": call.counts}
+          f"{storage_bytes(wcall.outputs) / mib:.1f} MiB", flush=True)
+    return {"debug": call.counts, "withdraw_debug": wcall.counts}
 
 
 FEE1_CONFIG = (2, 16, 1, 1)  # maxFeeTx = 1: the fee chain has no im pin
@@ -1317,8 +1308,9 @@ FEE1_CONFIG = (2, 16, 1, 1)  # maxFeeTx = 1: the fee chain has no im pin
 def check_fee_of_one(dev, card):
     """Phase 9's check at maxFeeTx = 1, on a valid RollupMain(2, 16, 1, 1)
     batch and on the same batch with the fee recipient's balance3 + 7:
-    `check_batch`'s compiled check (a fresh one: the valid batch op by op,
-    the tampered one captured, then both replayed, each replay timed) must
+    `check_batch` through its engine's `debug_call` (a fresh one: the valid
+    batch op by op, the tampered one captured, then both replayed, each
+    replay timed) must
     give `fee_ok` [True], then [False], of shape (1,), and every lane True;
     then `check_batch_sharded` in a world of one over NCCL on both batches
     must give the same masks. A mismatch raises."""
@@ -1328,7 +1320,7 @@ def check_fee_of_one(dev, card):
     want = {"valid": [True], "tampered": [False]}
     packed = {"valid": pack_rollup_inputs(valid, *FEE1_CONFIG, device=dev),
               "tampered": pack_rollup_inputs(bad, *FEE1_CONFIG, device=dev)}
-    call = checker.compiled_check(FEE1_CONFIG, dev)
+    call = checker.engine_for(FEE1_CONFIG, dev).debug_call
     assert not call.warm and call.outputs is None, "the check is not fresh"
 
     def checked(case, route, res):
@@ -1908,7 +1900,8 @@ def main() -> None:
     bb = production_batch(n_tx, N_LEVELS, max_l1, max_fee)
     inp = bb.get_input()
     t_host = time.perf_counter() - t0
-    engine = RollupEngine(n_tx, N_LEVELS, max_l1, max_fee)  # on the card
+    # on the card; the engine that check_batch reads too (phase 9)
+    engine = checker.engine_for((n_tx, N_LEVELS, max_l1, max_fee), dev)
     t0 = time.perf_counter()
     packed = engine.pack(inp)
     sync()
@@ -2015,9 +2008,7 @@ def main() -> None:
                          graph_launches=captured["counts"][name],
                          withdraw_launches=wlaunches[name],
                          sharded_launches=slaunches[name],
-                         trace_graph_launches=debug_counts["trace"][name],
                          debug_graph_launches=debug_counts["debug"][name],
-                         check_graph_launches=debug_counts["check"][name],
                          withdraw_debug_graph_launches=debug_counts[
                              "withdraw_debug"][name],
                          max_abs_err=r["err"], ms=r["ms"],

@@ -12,10 +12,10 @@ field operations and the kernels of `csrc/` -- is recorded once by
 those buffers and the graph is replayed: the same kernels with the same
 arguments, launched from the graph in one call instead of op by op from
 Python. The arithmetic is the eager path's own. The debug routes that the
-JAX package jits -- `RollupEngine._trace_lanes` and `_full_debug`,
-`WithdrawEngine.run_debug`, `r1cs.checker.check_batch` -- hold a
-`CapturedCall` each in the same way, whose outputs are trees of every
-intermediate.
+JAX package jits are captured in the same way, with trees of every
+intermediate as outputs: `RollupEngine.debug_call`, whose one evaluation
+`_trace_lanes`, `_full_debug` and `r1cs.checker.check_batch` read, and
+`WithdrawEngine.run_debug`'s call of each width.
 
 `CapturedCall` follows PyTorch's recipe: an eager run first, which builds
 the kernel library, puts its constants on the device and fills every

@@ -20,11 +20,12 @@ to the eager path. On the CPU the same bookkeeping runs the plain calls.
 `run_packed_eager` runs the circuit op by op, for debugging and for
 callers that watch the Python kernel wrappers, which a replay never calls.
 The debug routes are compiled the same way, as the JAX engines jit them:
-`trace` / `get_signal` (`RollupEngine.trace_call`), `_full_debug`
-(`debug_call`, the witness-vector export) and `WithdrawEngine.run_debug`
-(`debug_call_for`); `_trace_lanes_eager`, `_full_debug_eager` and
-`run_packed_eager(debug=True)` are their op-by-op routes. An engine's
-graphs share one memory pool (`aot.graph_pool` says why that is safe).
+RollupMain's one debug evaluation, `RollupEngine.debug_call`, serves
+`trace` / `get_signal`, `_full_debug` (the witness-vector export) and
+`r1cs.checker.check_batch`; Withdraw's is `WithdrawEngine.run_debug`
+(`debug_call_for`). `debug_eager` and `run_packed_eager(debug=True)` are
+their op-by-op routes. An engine's graphs share one memory pool
+(`aot.graph_pool` says why that is safe).
 
 A pack stages a call's inputs in one host buffer and copies it once. On
 the host, `limbs.write` (a C routine, `csrc/limbs.c`) writes every field
@@ -319,18 +320,15 @@ class RollupEngine:
                  device="cuda"):
         self.params = (n_tx, n_levels, max_l1_tx, max_fee_tx)
         self.device = resolve_device(device)
-        # the compiled circuit and its two debug routes, on the same input
-        # shapes, in one memory pool: a call clones its outputs before any
+        # the compiled circuit and its debug evaluation, on the same input
+        # shapes, in one memory pool: a call clones its outputs before the
         # other replays, and the static inputs lie outside the pool
         self._pool = graph_pool(self.device)
         shapes = rollup_input_shapes(*self.params)
         self.call = CapturedCall(self.run_packed_eager, shapes,
                                  self.device, pool=self._pool,
                                  route="rollup")
-        self.trace_call = CapturedCall(self._trace_lanes_eager, shapes,
-                                       self.device, pool=self._pool,
-                                       route="rollup.trace")
-        self.debug_call = CapturedCall(self._full_debug_eager, shapes,
+        self.debug_call = CapturedCall(self.debug_eager, shapes,
                                        self.device, pool=self._pool,
                                        route="rollup.debug")
 
@@ -451,31 +449,29 @@ class RollupEngine:
 
     def _trace_lanes(self, inp: dict):
         """The lane phases with every intermediate kept: (lanes debug dict,
-        lane_ok (T,)), through the compiled `trace_call`."""
-        return self.trace_call(self.pack(inp))
-
-    def _trace_lanes_eager(self, packed: dict):
-        """`_trace_lanes` op by op on packed tensors."""
-        n_tx, n_levels, _, max_fee_tx = self.params
-        chains = build_chains(packed, n_tx, max_fee_tx)
-        return rollup_main_lanes(packed, chains, n_tx, n_levels, max_fee_tx,
-                                 debug=True)
+        lane_ok (T,)), read from the compiled `debug_call`."""
+        return self.debug_call(self.pack(inp))[:2]
 
     def _full_debug(self, inp: dict):
         """One debug evaluation of the WHOLE circuit (lanes + fee phase +
         global hash) with every intermediate kept -- the witness-vector
         export path (engine/witness_vector.py), through the compiled
         `debug_call`. Returns (lanes, lane_ok, outputs, ok)."""
-        return self.debug_call(self.pack(inp))
+        return self.debug_call(self.pack(inp))[:4]
 
-    def _full_debug_eager(self, packed: dict):
-        """`_full_debug` op by op on packed tensors."""
+    def debug_eager(self, packed: dict):
+        """The debug evaluation op by op on packed tensors, the function
+        of `debug_call`: `_full_debug`'s (lanes, lane_ok, outputs, ok) and
+        the fee phase's per-slot ok (maxFeeTx,), which `check_batch`
+        reads."""
         n_tx, n_levels, max_l1_tx, max_fee_tx = self.params
-        lanes, lane_ok = self._trace_lanes_eager(packed)
-        out, tail_ok = global_tail(packed, lanes, n_tx, n_levels, max_l1_tx,
-                                   max_fee_tx, debug=True)
+        chains = build_chains(packed, n_tx, max_fee_tx)
+        lanes, lane_ok = rollup_main_lanes(packed, chains, n_tx, n_levels,
+                                           max_fee_tx, debug=True)
+        out, tail_ok, fee_ok = global_tail(packed, lanes, n_tx, n_levels,
+                                           max_l1_tx, max_fee_tx, debug=True)
         ok = lane_ok.all() & tail_ok & (packed["im_on_chain"] <= 1).all()
-        return lanes, lane_ok, out, ok
+        return lanes, lane_ok, out, ok, fee_ok
 
     @staticmethod
     def _lookup(lanes: dict, path: tuple):

@@ -7,7 +7,8 @@ neighbour's outputs, so the nTx lane axis is a plain batch axis.
 
   build_chains()       im chains -> per-lane prev/expected arrays (len T)
   rollup_main_lanes()  phases A-E: per-lane decode + tx + integrity
-  global_tail()        phases F-H: fee txs, fee-chain integrity, SHA-256
+  fee_phase()          phases F-G: fee txs, fee-chain integrity, per slot
+  global_tail()        phases F-H: fee_phase folded, then SHA-256
   rollup_main()        all of it, and the verdict
   make_rollup_main()   rollup_main closed over the four static parameters
 
@@ -203,11 +204,15 @@ def rollup_main_lanes(inp: dict, chains: dict, n_tx: int, n_levels: int,
     return lanes, lane_ok
 
 
-def global_tail(inp: dict, lanes: dict, n_tx: int, n_levels: int,
-                max_l1_tx: int, max_fee_tx: int, debug: bool = False):
-    """Phases F-H: fee transactions, fee-chain integrity, global SHA-256.
-    Returns (outputs, ok)."""
-    # F - fee transactions, batched over the F slot axis
+def fee_phase(inp: dict, debug: bool):
+    """Phases F-G: the fee transactions, batched over the maxFeeTx slots,
+    and the fee chain's pins. Returns (fee root (16, F), per-slot ok (F,),
+    the fee transactions' intermediates or None). A slot's ok holds its own
+    constraints and its pin: slot j's output root must equal
+    imStateRootFee[j] (src/rollup-main.circom:419-424). The last slot's
+    root is the batch output and has no pin, so the pins are padded with
+    one True slot, made on the device; at maxFeeTx = 1 there is no pin at
+    all."""
     fee_old_root = torch.cat([inp["im_init_state_root_fee"],
                               inp["im_state_root_fee"]], dim=-1)
     fee_res = fee_tx(
@@ -216,10 +221,18 @@ def global_tail(inp: dict, lanes: dict, n_tx: int, n_levels: int,
         inp["token_id3"], inp["nonce3"], inp["sign3"], inp["balance3"],
         inp["ay3"], inp["eth_addr3"], inp["siblings3"], debug=debug)
     fee_root, fee_ok = fee_res[0], fee_res[1]
-    ok_all = fee_ok.all()
+    chain_ok = fr.eq(fee_root[:, :-1], inp["im_state_root_fee"])
+    pad = torch.ones(1, dtype=torch.bool, device=chain_ok.device)
+    return (fee_root, fee_ok & torch.cat([chain_ok, pad]),
+            fee_res[2] if debug else None)
 
-    # G - fee im integrity
-    ok_all = ok_all & fr.eq(fee_root[:, :-1], inp["im_state_root_fee"]).all()
+
+def global_tail(inp: dict, lanes: dict, n_tx: int, n_levels: int,
+                max_l1_tx: int, max_fee_tx: int, debug: bool = False):
+    """Phases F-H: `fee_phase`, then the global SHA-256. Returns (outputs,
+    ok, the fee phase's per-slot ok (F,))."""
+    fee_root, fee_ok, fee_dbg = fee_phase(inp, debug=debug)
+    ok_all = fee_ok.all()
 
     # H - global input hash
     l1_flat = lanes["l1_tx_full_data"][:, :max_l1_tx].T.reshape(-1, 1)
@@ -250,8 +263,8 @@ def global_tail(inp: dict, lanes: dict, n_tx: int, n_levels: int,
         acc_fee_out=lanes["acc_fee_out"][:, :, -1],
     )
     if debug:
-        outputs["fee"] = dict(fee_res[2], new_root=fee_root)
-    return outputs, ok_all
+        outputs["fee"] = dict(fee_dbg, new_root=fee_root)
+    return outputs, ok_all, fee_ok
 
 
 def rollup_main(inp: dict, n_tx: int, n_levels: int, max_l1_tx: int,
@@ -262,8 +275,8 @@ def rollup_main(inp: dict, n_tx: int, n_levels: int, max_l1_tx: int,
     lanes, lane_ok = rollup_main_lanes(inp, chains, n_tx, n_levels,
                                        max_fee_tx)
     ok_all = lane_ok.all() & (inp["im_on_chain"] <= 1).all()
-    out, tail_ok = global_tail(inp, lanes, n_tx, n_levels, max_l1_tx,
-                               max_fee_tx)
+    out, tail_ok, _ = global_tail(inp, lanes, n_tx, n_levels, max_l1_tx,
+                                  max_fee_tx)
     return out, ok_all & tail_ok
 
 

@@ -201,8 +201,8 @@ def _sharded_step(inp, chains, n_tx, t_loc, n_levels, max_l1_tx,
     ok_all = (n_bad == 0) & (inp["im_on_chain"] <= 1).all()
     full_lanes = {k: gather_lanes(lanes[k], dim, mesh)
                   for k, dim in _TAIL_LANE_DIM.items()}
-    out, tail_ok = rm.global_tail(inp, full_lanes, n_tx, n_levels,
-                                  max_l1_tx, max_fee_tx)
+    out, tail_ok, _ = rm.global_tail(inp, full_lanes, n_tx, n_levels,
+                                     max_l1_tx, max_fee_tx)
     return out, ok_all & tail_ok
 
 

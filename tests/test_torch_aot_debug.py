@@ -2,15 +2,19 @@
 CPU, where there is no CUDA graph, against the JAX package's jitted ones,
 at the suite's config (3, 16, 2, 2) and on Withdraw(16) x 5 lanes:
 
-- `RollupEngine._trace_lanes` (`trace_call`, which `trace` and
-  `get_signal` read), `_full_debug` (`debug_call`, the witness-vector
-  export) and `WithdrawEngine.run_debug` (`debug_call_for`) on batches A,
-  B, A -- the first call op by op, the capture, a replay -- every leaf
-  equal limb for limb to JAX's `_trace_lanes`, `_full_debug` and
-  `run_debug` (`check_batch`'s compiled check is held the same way, with a
-  tampered batch through its replay, in `tests/test_torch_checker.py`);
-- the capture-safety mirror (`tests/torch_capture.py`) on the two new
-  device functions, `_full_debug`'s body and `withdraw(debug=True)`;
+- `RollupEngine._trace_lanes` (which `trace` and `get_signal` read) and
+  `_full_debug` (the witness-vector export), both read from the engine's
+  one `debug_call`, in turns on batches A, B, A -- the first call op by
+  op, the capture, replays -- and `WithdrawEngine.run_debug`
+  (`debug_call_for`) on A, B, A: every leaf equal limb for limb to JAX's
+  `_trace_lanes`, `_full_debug` and `run_debug` (`check_batch`, which
+  reads the same `debug_call` of an engine the checker keeps, is held with
+  a tampered batch through its replay in `tests/test_torch_checker.py`);
+- `trace`, `get_signal`, `_full_debug`, `export_witness` and `handoff`
+  each one call of `debug_call` and of nothing else;
+- the capture-safety mirror (`tests/torch_capture.py`) on the two debug
+  device functions, `RollupEngine.debug_eager` (the check's masks
+  included) and `withdraw(debug=True)`;
 - `CapturedCall` with trees whose leaves are no tensors, are one tensor
   twice, or are a static input passed through: the clones stay right when
   the next batch is loaded and share memory with nothing; a debug route
@@ -28,12 +32,13 @@ import torch
 from circuits_tpu.engine.witness import (RollupEngine as JaxEngine,
                                          WithdrawEngine as JaxWithdrawEngine)
 from circuits_tpu_torch import convert
-from circuits_tpu_torch.engine import aot
+from circuits_tpu_torch.engine import aot, witness_vector
 from circuits_tpu_torch.engine.witness import RollupEngine, WithdrawEngine
 from circuits_tpu_torch.scripts import withdraw_cases
 
 from torch_capture import record_ops
-from torch_compare import SUITE_CONFIG, assert_same, suite_batches
+from torch_compare import (SUITE_CONFIG, assert_same,  # noqa: F401
+                           one_thread, suite_batches)  # one_thread: autouse
 
 WITHDRAW_LEVELS = 16
 WITHDRAW_WIDTH = 5
@@ -41,6 +46,10 @@ RUNS = [("A1", "A"), ("B", "B"), ("A2", "A")]
 # what a route's CapturedCall holds after each of A, B, A: (warm,
 # captured, replays)
 STATES = [(True, False, 0), (True, True, 0), (True, True, 1)]
+# what RollupMain's one debug_call holds after each call of a route, the
+# two routes in turns on A, B, A: trace first
+TURNS = {"trace": [(True, False, 0), (True, True, 1), (True, True, 3)],
+         "debug": [(True, True, 0), (True, True, 2), (True, True, 4)]}
 
 
 @pytest.fixture(scope="module")
@@ -54,12 +63,13 @@ def inputs():
 def rollup_runs(inputs):
     """A, B, A through one engine's `_trace_lanes` and `_full_debug`, the
     two routes in turns; each result as numpy right after its call, and the
-    tensors themselves, with the calls' states after each batch."""
+    tensors themselves, with `debug_call`'s state after each call."""
     eng = RollupEngine(*SUITE_CONFIG, device="cpu")
     runs, states = {}, {"trace": [], "debug": []}
+    call = eng.debug_call
     for run, batch in RUNS:
-        for route, fn, call in (("trace", eng._trace_lanes, eng.trace_call),
-                                ("debug", eng._full_debug, eng.debug_call)):
+        for route, fn in (("trace", eng._trace_lanes),
+                          ("debug", eng._full_debug)):
             out = fn(inputs[batch])
             runs[route, run] = (out, convert.debug_to_numpy(out))
             states[route].append((call.warm, call.outputs is not None,
@@ -91,8 +101,8 @@ def test_debug_route_equals_jax(rollup_runs, jax_rollup, route, run, batch):
 @pytest.mark.parametrize("route", ["trace", "debug"])
 def test_debug_routes_capture_at_the_second_call(rollup_runs, route):
     eng, runs, states = rollup_runs
-    assert states[route] == STATES
-    call = {"trace": eng.trace_call, "debug": eng.debug_call}[route]
+    assert states[route] == TURNS[route]
+    call = eng.debug_call
     assert call.shapes == aot.rollup_input_shapes(*SUITE_CONFIG)
     assert call.pool is eng.call.pool and call.graph is None
     assert eng.call._inputs is None  # the main call never ran
@@ -119,12 +129,9 @@ def test_debug_outputs_are_not_shared(rollup_runs):
     tensor in the eager tree (`out_idx` and `decode.out_idx`) come back as
     two clones."""
     eng, runs, _ = rollup_runs
-    static = set()
-    for call in (eng.trace_call, eng.debug_call):
-        static |= {t.untyped_storage().data_ptr()
-                   for t in _leaves(call.outputs)}
-        static |= {t.untyped_storage().data_ptr()
-                   for t in call.inputs.values()}
+    call = eng.debug_call
+    static = {t.untyped_storage().data_ptr() for t in
+              list(_leaves(call.outputs)) + list(call.inputs.values())}
     seen = set()
     for (route, run), (out, _) in runs.items():
         ptrs = [t.untyped_storage().data_ptr() for t in _leaves(out)]
@@ -140,11 +147,66 @@ def test_debug_outputs_are_not_shared(rollup_runs):
 def test_debug_routes_refuse_other_inputs(rollup_runs, inputs):
     eng = rollup_runs[0]
     packed = eng.pack(inputs["A"])
-    for call in (eng.trace_call, eng.debug_call):
-        with pytest.raises(ValueError, match="captured for"):
-            call(dict(packed, s=packed["s"][:, :2]))
-        with pytest.raises(ValueError, match="missing"):
-            call({k: v for k, v in packed.items() if k != "s"})
+    with pytest.raises(ValueError, match="captured for"):
+        eng.debug_call(dict(packed, s=packed["s"][:, :2]))
+    with pytest.raises(ValueError, match="missing"):
+        eng.debug_call({k: v for k, v in packed.items() if k != "s"})
+
+
+def test_entry_points_read_debug_call_alone(rollup_runs, inputs, tmp_path,
+                                            monkeypatch):
+    """`trace`, `get_signal`, `_full_debug`, `export_witness` and `handoff`
+    on the engine whose `debug_call` the fixture captured: each is one
+    replay of it, loads A and runs nothing else of the circuit (the engine
+    holds no other CapturedCall than its main call, which never ran). The
+    fixture's last call was `_full_debug` of A, so the static outputs hold
+    A's evaluation; the replays here run a stand-in that returns it, so
+    that the test costs no evaluation of its own."""
+    eng = rollup_runs[0]
+    inp = inputs["A"]
+    calls = [v for v in vars(eng).values() if isinstance(v, aot.CapturedCall)]
+    assert calls == [eng.call, eng.debug_call]
+    call, packed = eng.debug_call, eng.pack(inp)
+    assert all(torch.equal(call.inputs[k], v) for k, v in packed.items())
+    evaluation, ran = aot._tree_map(torch.clone, call.outputs), []
+
+    def replayed(static_inputs):
+        assert static_inputs is call.inputs
+        assert all(torch.equal(static_inputs[k], v)
+                   for k, v in packed.items())
+        ran.append(1)
+        return evaluation
+
+    monkeypatch.setattr(call, "fn", replayed)
+    path = tmp_path / "a.wtns"
+    entries = {
+        "trace": lambda: eng.trace(inp),
+        "get_signal": lambda: eng.get_signal(inp, "states.key1[0]"),
+        "_full_debug": lambda: eng._full_debug(inp),
+        "export_witness": lambda: witness_vector.export_witness(eng, inp),
+        "handoff": lambda: witness_vector.handoff(eng, inp, path),
+    }
+    got = {}
+    for i, (name, entry) in enumerate(entries.items()):
+        replays = call.replays
+        got[name] = entry()
+        assert (call.warm, call.outputs is not None, call.replays) == \
+            (True, True, replays + 1), name
+        assert len(ran) == i + 1, name
+    assert eng.call._inputs is None and eng.call.outputs is None
+    lanes, lane_ok, out, ok = rollup_runs[1]["debug", "A2"][0]
+    assert_same(evaluation[:4], (lanes, lane_ok, out, ok))
+    assert bool(ok)
+    trace = got["trace"]
+    assert trace["lane_ok"] == lane_ok.tolist() == [True] * SUITE_CONFIG[0]
+    assert got["get_signal"] == trace["states.key1"][0]
+    assert_same(got["_full_debug"], (lanes, lane_ok, out, ok))
+    names, values = got["export_witness"]
+    assert names == witness_vector.signal_names(*SUITE_CONFIG)
+    outputs, handed = got["handoff"]
+    assert handed and path.exists()
+    assert outputs["hash_global_inputs"] == values[1] == \
+        eng.unpack_outputs(out)["hash_global_inputs"]
 
 
 # ---------------------------------------------------------------------------

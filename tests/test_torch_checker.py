@@ -7,9 +7,10 @@ another form than the JAX package (`r1cs/audit.py`: rollup-main.circom
 :215, :263, :387, rollup-tx.circom:259 and the EdDSA identity), each a
 batch tampered so that the residual refuses a lane, and the valid batch
 with a transfer to a BabyJubJub address that :259 needs. Exact. The
-cases go in that order through one compiled check
-(`checker.compiled_check`): the first runs op by op, the second is the
-capture (on the CPU a plain call), the rest are replays."""
+cases go in that order through the `debug_call` of the one engine that
+the checker keeps for the circuit and device (`checker.engine_for`): the
+first runs op by op, the second is the capture (on the CPU a plain call),
+the rest are replays."""
 
 import copy
 
@@ -92,11 +93,12 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def checked():
-    """{case: (port's result, JAX's result)} and the compiled check's
-    (warm, captured, replays) after each case; the check is made fresh,
-    since the compiled checks live as long as the process."""
+    """{case: (port's result, JAX's result)} and the checker's
+    `debug_call`'s (warm, captured, replays) after each case; its engine is
+    made fresh, since the checker keeps its engines as long as the
+    process."""
     key = (SUITE_CONFIG, torch.device("cpu"))
-    checker._CALLS.pop(key, None)
+    checker._ENGINES.pop(key, None)
     bases = {"l2": suite_batches()["l2"].get_input(),
              "to_bjj": to_bjj_batch().get_input()}
     res, states = {}, []
@@ -106,7 +108,7 @@ def checked():
             tamper(inp)
         got = check_batch(pack_rollup_inputs(inp, *SUITE_CONFIG,
                                              device="cpu"), *SUITE_CONFIG)
-        call = checker._CALLS[key]
+        call = checker._ENGINES[key].debug_call
         states.append((call.warm, call.outputs is not None, call.replays))
         want = (res["valid"][1] if case == "valid again" else
                 j_check_batch(j_pack(inp, *SUITE_CONFIG), *SUITE_CONFIG))
@@ -135,17 +137,20 @@ def test_check_batch_names_what_was_tampered(checked, case):
 
 
 def test_check_batch_runs_through_one_compiled_check(checked):
-    """Op by op, the capture, then a replay a case; one `CapturedCall` a
-    circuit and device, whose device part is `check_masks` at the packed
-    shapes."""
+    """Op by op, the capture, then a replay a case; one engine a circuit
+    and device, whose `debug_call` at the packed shapes is the check's only
+    CapturedCall: the engine's main call never ran."""
     res, states = checked
     assert states == [(True, False, 0), (True, True, 0)] + [
         (True, True, i) for i in range(1, len(CASES) - 1)]
-    call = checker.compiled_check(SUITE_CONFIG, "cpu")
-    assert call is checker._CALLS[SUITE_CONFIG, torch.device("cpu")]
+    engine = checker.engine_for(SUITE_CONFIG, "cpu")
+    assert engine is checker._ENGINES[SUITE_CONFIG, torch.device("cpu")]
+    call = engine.debug_call
+    assert call.fn == engine.debug_eager
     assert call.shapes == rollup_input_shapes(*SUITE_CONFIG)
     assert call.pool is None and call.graph is None
-    assert checker.compiled_check((4, 16, 2, 2), "cpu") is not call
+    assert engine.call._inputs is None and engine.call.outputs is None
+    assert checker.engine_for((4, 16, 2, 2), "cpu") is not engine
     first, again = res["valid"][0], res["valid again"][0]
     for mask in ("lane_ok", "fee_ok"):
         assert first[mask].tolist() == again[mask].tolist()

@@ -1,6 +1,6 @@
 """The verdict at maxFeeTx = 1, where the fee chain has no im pin: the
-port's `check_batch` (its compiled check: op by op, then the capture),
-`check_batch_sharded` in a world of one (gloo, in process) and
+port's `check_batch` (its engine's `debug_call`: op by op, then the
+capture), `check_batch_sharded` in a world of one (gloo, in process) and
 `RollupEngine(..., device="cpu").run` against the JAX package's
 `check_batch` and `RollupEngine.run`, at RollupMain(2, 16, 1, 1) on a
 valid batch and on the same batch with the fee recipient's balance3 + 7.
@@ -33,9 +33,10 @@ CASES = {"valid": [True], "fee slot tampered": [False]}
 
 @pytest.fixture(scope="module")
 def results():
-    """{case: {route: result}} of both packages; the compiled check is made
-    fresh, since the compiled checks live as long as the process."""
-    checker._CALLS.pop((CONFIG, torch.device("cpu")), None)
+    """{case: {route: result}} of both packages; the checker's engine is
+    made fresh, since the checker keeps its engines as long as the
+    process."""
+    checker._ENGINES.pop((CONFIG, torch.device("cpu")), None)
     bb = production_batch(*CONFIG)
     valid = bb.get_input()
     bad = dict(valid, balance3=[valid["balance3"][0] + 7])

@@ -404,60 +404,59 @@ def test_withdraw_widths_share_one_graph_pool(cuda):
 
 
 def test_captured_debug_routes_equal_eager_and_share_one_pool(cuda):
-    """`trace_call`, `debug_call` and `check_batch`'s compiled check on
-    batches A, B, A and a tampered A: the first op by op, B captured, the
-    rest replayed; each graph's kernel nodes are the first call's wrapper
-    launches, every output equals the eager route's, the tampered lane is
-    named through the graph. The engine's three graphs lie in one pool and
+    """The engine's one debug route, `debug_call`, on batches A, B, A and a
+    tampered A: the first op by op, B captured, the rest replayed; its
+    kernel nodes are the first call's wrapper launches and every output
+    equals the eager route's. The engine is the one `check_batch` keeps for
+    the circuit and card, and holds two CapturedCalls: `check_batch`
+    (naming the tampered lane), `_full_debug`, `trace` and `get_signal` are
+    one replay of `debug_call` each. Its two graphs lie in one pool and
     replay in turns, each exact."""
+    from circuits_tpu_torch.engine.aot import CapturedCall
     from circuits_tpu_torch.r1cs import checker
 
-    engine = RollupEngine(*SUITE_CONFIG, device=cuda)
+    checker._ENGINES.pop((SUITE_CONFIG, cuda), None)  # a fresh engine
+    engine = checker.engine_for(SUITE_CONFIG, cuda)
+    # "cuda" without an index is the same card, so the same engine
+    assert checker.engine_for(SUITE_CONFIG, "cuda") is engine
+    assert [v for v in vars(engine).values()
+            if isinstance(v, CapturedCall)] == [engine.call, engine.debug_call]
     bbs = suite_batches()
     a, b = bbs["l2"].get_input(), bbs["deposit"].get_input()
     bad = dict(a)
     bad["s"] = list(a["s"])
     bad["s"][0] = (bad["s"][0] + 1) % scalar.P
     pa, pb, pbad = (engine.pack(x) for x in (a, b, bad))
-    checker._CALLS.pop((SUITE_CONFIG, cuda), None)  # a fresh check
-    check = checker.compiled_check(SUITE_CONFIG, cuda)
-    # "cuda" without an index is the same card, so the same check
-    assert checker.compiled_check(SUITE_CONFIG, "cuda") is check
-    n_tx, n_levels, _, max_fee_tx = SUITE_CONFIG
-    routes = ((engine.trace_call, engine._trace_lanes_eager),
-              (engine.debug_call, engine._full_debug_eager),
-              (check, lambda p: checker.check_masks(p, n_tx, n_levels,
-                                                    max_fee_tx)))
-    got = []
-    for call, eager in routes:
-        kernels.reset_launches()
-        first = call(pa)
-        launches = dict(kernels.launches)
-        kernels.reset_launches()
-        outs = [call(p) for p in (pb, pa, pbad)]
-        assert not any(kernels.launches.values()), kernels.launches
-        assert call.counts == launches and call.replays == 3
-        assert call.counts["ay_sign_to_ax"] == 1, call.counts
-        for out, p in zip([first] + outs, (pa, pb, pa, pbad)):
-            assert_same(out, eager(p))
-        got.append(outs[1])
+    call = engine.debug_call
+    kernels.reset_launches()
+    first = call(pa)
+    launches = dict(kernels.launches)
+    kernels.reset_launches()
+    outs = [call(p) for p in (pb, pa, pbad)]
+    assert not any(kernels.launches.values()), kernels.launches
+    assert call.counts == launches and call.replays == 3
+    assert call.counts["ay_sign_to_ax"] == 1, call.counts
+    for out, p in zip([first] + outs, (pa, pb, pa, pbad)):
+        assert_same(out, engine.debug_eager(p))
+    kernels.reset_launches()
     res = checker.check_batch(pbad, *SUITE_CONFIG)
     assert np.flatnonzero(~res["lane_ok"]).tolist() == [0]
-    assert check.replays == 4
+    assert res["fee_ok"].tolist() == [True] * SUITE_CONFIG[3]
     lanes, lane_ok, dout, ok = engine._full_debug(a)
     assert bool(ok) and engine.unpack_outputs(dout)["hash_global_inputs"] \
         == bbs["l2"].get_hash_inputs()
+    tr = engine.trace(a)
+    assert tr["lane_ok"] == [True] * SUITE_CONFIG[0]
+    assert engine.get_signal(a, "states.key1[0]") == tr["states.key1"][0]
+    assert call.replays == 7 and not any(kernels.launches.values())
     main = engine.run_packed(pa)  # op by op: the main call's first batch
     engine.compile()
-    refs = {"main": main, "debug": got[1], "trace": got[0]}
+    refs = {"main": main, "debug": outs[1]}
     runs = {"main": lambda: engine.run_packed(pa),
-            "debug": lambda: engine.debug_call(pa),
-            "trace": lambda: engine.trace_call(pa)}
-    for name in ("main", "debug", "trace", "main"):
+            "debug": lambda: call(pa)}
+    for name in ("main", "debug", "main"):
         assert_same(runs[name](), refs[name], name)
-    pools = {c.graph.pool() for c in (engine.call, engine.trace_call,
-                                       engine.debug_call)}
-    assert len(pools) == 1
+    assert engine.call.graph.pool() == call.graph.pool()
 
 
 def test_captured_withdraw_debug_equals_eager(cuda):

@@ -6,8 +6,10 @@ residual audit's report, builds the suite's (3, 16, 2, 2) batches with the
 port's own builder, runs `RollupEngine(..., device="cpu").run`, holds the
 outputs against the builder, reads its signals (`trace`), exports its
 witness vector and checks it with the port's pure-Python checker, calls
-each compiled debug route a second time (its capture: `get_signal`, the
-export, `check_batch` of a tampered batch, Withdraw's `run_debug`), runs a
+each compiled debug route a second time (its capture: the engine's
+`debug_call` at the export, replayed by `get_signal` and the second
+export; the checker's engine's at `check_batch` of a tampered batch;
+Withdraw's `run_debug`), runs a
 batch of withdrawals through `WithdrawEngine` against the builder and
 through a `CapturedCall` of the compiled engines' module (`engine/aot.py`,
 whose input shapes it also holds), runs both plain versions of the full-round experiment against its bigint mirror, and
@@ -84,15 +86,16 @@ SCRIPT = BLOCK + textwrap.dedent("""
     assert values[1] == want["hash_global_inputs"]
     assert verify_witness(dict(zip(names, values)), *SUITE_CONFIG)["ok"]
     assert check_batch(engine.pack(inp), *SUITE_CONFIG)["ok"]
-    # the second call of each debug route is its capture
+    # trace ran debug_call op by op and the export captured it: these two
+    # replay it; the tampered check is the capture of the checker's
     assert engine.get_signal(inp, "states.key1[0]") == 256
     assert witness_vector.export_witness(engine, inp) == (names, values)
     bad = dict(inp, s=[(inp["s"][0] + 1) % fr.P] + list(inp["s"][1:]))
     assert check_batch(engine.pack(bad), *SUITE_CONFIG)[
         "lane_ok"].tolist() == [False, True, True]
-    assert all(c.outputs is not None for c in (
-        engine.trace_call, engine.debug_call,
-        checker.compiled_check(SUITE_CONFIG, "cpu")))
+    checks = checker.engine_for(SUITE_CONFIG, "cpu")
+    assert engine.debug_call.replays == 2 and checks.debug_call.outputs \\
+        is not None and checks.debug_call.replays == 0
     sharded = make_sharded_rollup_main(make_tx_mesh(1, device="cpu"),
                                        *SUITE_CONFIG)
     sout, sok = sharded(engine.pack(inp))
