@@ -81,9 +81,10 @@ Phases (any failure raises, and the exit code is then non-zero):
     `debug_call` and the main graph replayed in turns out of the engine's
     one pool, each exact;
     `export_witness` + `write_wtns` at RollupMain(2048, 32, 256, 64)
-    through the replayed `_full_debug`, its device part and host assembly
-    apart; then the witness vector at a smaller depth with the widths
-    kept: `export_witness` -> `write_wtns` -> `load_witness` ->
+    through the replayed `debug_call`, its device part and the bytes' read
+    as ints apart, and `handoff`'s file the same bytes; then the witness
+    vector at a smaller depth with the widths kept: `export_witness` ->
+    `write_wtns` -> `load_witness` ->
     `verify_witness` (pure Python) on a RollupMain(16, 32, 8, 4) batch and
     `export_witness_withdraw` -> `verify_withdraw_witness` on 8 lanes of
     phase 8, each of which must pass and must fail with one value changed;
@@ -152,6 +153,7 @@ the last line is
 from __future__ import annotations
 
 import collections
+import filecmp
 import hashlib
 import json
 import os
@@ -1164,24 +1166,38 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
           f"{kept_memory() / mib:.1f} MiB with the engine's two graphs",
           flush=True)
 
-    # the witness vector at this shape, through the replayed _full_debug
-    replayed = engine._full_debug
-    device_s = []
+    # the witness vector at this shape, through the replayed debug_call:
+    # the pack and the replay timed apart from the gather, the copy and the
+    # read as ints
+    stage_s = {"pack": [], "debug_call": []}
 
-    def timed(inp_):
-        t0 = time.perf_counter()
-        res = replayed(inp_)
-        sync()
-        device_s.append(time.perf_counter() - t0)
-        return res
+    def timed(name):
+        real = getattr(engine, name)
 
-    engine._full_debug = timed
+        def call(*args):
+            t0 = time.perf_counter()
+            res = real(*args)
+            sync()
+            stage_s[name].append(time.perf_counter() - t0)
+            return res
+        return call
+
+    # `debug_call` is the engine's own attribute, `pack` its class's method
+    own = {name: engine.__dict__.get(name) for name in stage_s}
+    for name in stage_s:
+        setattr(engine, name, timed(name))
     try:
         t0 = time.perf_counter()
         names, values = witness_vector.export_witness(engine, inp)
         t_export = time.perf_counter() - t0
     finally:
-        del engine._full_debug
+        for name, real in own.items():
+            if real is None:
+                delattr(engine, name)
+            else:
+                setattr(engine, name, real)
+    pack_s, device_s = stage_s["pack"], stage_s["debug_call"]
+    assert len(pack_s) == 1
     assert len(device_s) == 1 and len(names) == len(values)
     assert values[1] == bb_a.get_hash_inputs()
     w = dict(zip(names, values))
@@ -1193,12 +1209,22 @@ def check_debug_paths(engine, inp, bad, out, bb_a, bb_b, wengine, wlanes,
         witness_vector.write_wtns(wtns, values)
         t_write = time.perf_counter() - t0
         size = os.path.getsize(wtns)
+        # the handoff: the same bytes, gathered on the card and written
+        # from the pinned buffer
+        handed = os.path.join(tmp, "h.wtns")
+        t0 = time.perf_counter()
+        out_h, ok_h = witness_vector.handoff(engine, inp, handed)
+        t_handoff = time.perf_counter() - t0
+        assert ok_h and filecmp.cmp(wtns, handed, shallow=False), "handoff"
+        assert out_h["hash_global_inputs"] == bb_a.get_hash_inputs()
     assert size == 12 + 12 + 40 + 12 + 32 * len(values)
     print(f"export_witness of RollupMain{engine.params} on {card}: "
-          f"{len(values)} signals, {t_export:.3f} s = _full_debug replayed "
-          f"(pack and clone included) {device_s[0]:.3f} s + host assembly "
-          f"{t_export - device_s[0]:.3f} s; write_wtns {t_write:.3f} s, "
-          f"{size} bytes; hash, newStateRoot, newLastIdx the builder's",
+          f"{len(values)} signals, {t_export:.3f} s = pack {pack_s[0]:.3f} "
+          f"s + debug_call replayed {device_s[0]:.3f} s + the gather, the "
+          f"copy and the read as ints "
+          f"{t_export - pack_s[0] - device_s[0]:.3f} s; write_wtns "
+          f"{t_write:.3f} s, {size} bytes; handoff {t_handoff:.3f} s, the "
+          f"same bytes; hash, newStateRoot, newLastIdx the builder's",
           flush=True)
 
     # the witness vectors; their pure-Python checker bounds the depth

@@ -6,8 +6,13 @@ which snarkjs consumes for Groth16 proving (tools/helpers/actions.js:
 132-146, :168-185). This module is that artifact for this engine: a
 COMPLETE, canonically-ordered, signal-indexed vector of every value the
 monomorphized circuit evaluates. The names, the order and the container
-bytes are the JAX package's; the values are read from the torch debug
-dicts, each tensor brought to the host once.
+bytes are the JAX package's. The vector is built on the device as the
+bytes of the `.wtns`'s section 2: every value already lies there as 16
+canonical 16-bit limbs (section IN in the packed input, reduced mod P by
+the pack; the rest in the debug graph's outputs), and 16 limbs read as
+little-endian uint16 are the value's 32 little-endian bytes. One gather
+by a layout built once for the parameters (`_Layout`) puts them in order,
+and one copy brings them to the host, into a page-locked buffer on a card.
 
 Canonical ordering (documented contract; does not reuse circom's `.sym`
 numbering — the engine monomorphizes by its parameters, not by circom
@@ -53,23 +58,31 @@ a JSON sidecar mapping canonical names to indices (the `.sym` analogue).
 vector written as a `.wtns` where the circuit accepts the batch, nothing
 where it refuses it (the reference's witness calculator stops there with
 "Constraint doesn't match"). `export_witness` shares its body and exports
-whatever the verdict. Spans (`spans.py`): `export.handoff` around a
-handoff; `export.evaluate` the pack and the debug graph up to the
-verdict; `export.read` the device's values to the Python int vector
-(counter `export_values`); `export.write` the file (counter
-`wtns_bytes`).
+whatever the verdict, its bytes read as ints (so every value mod P).
+Spans (`spans.py`): `export.handoff` around a handoff; `export.evaluate`
+the pack and the debug graph up to the verdict; `export.read` the gather
+on the device and the one copy to the host (`_vector`; counters
+`export_values`, the vector's values, and `export_device_values`, the
+rows the device's gather gave); `export.write` the file, written from the
+host buffer (`write_wtns`; counter `wtns_bytes`).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import struct
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
+
+import numpy as np
+import torch
 
 from .. import spans
 from ..field import fr, limbs
 from ..field.scalar import P
 from ..models.decode_tx import L1_TX_FULL_BITS, l1l2_bits
+from .witness import _snake, staging
 
 # per-lane circuit inputs, in src/rollup-main.circom declaration order
 # (:127-161); (name, kind) with kind "field" | "flag" | "bits256"
@@ -227,32 +240,282 @@ def _ints(arr) -> list[int]:
     return fr.unpack_np(arr).tolist()
 
 
-def _flags(arr) -> list[int]:
-    """(B,) bool or 0/1 tensor -> list of B python ints 0/1."""
-    return [int(v) for v in fr.to_numpy(arr).reshape(-1)]
+# ---------------------------------------------------------------------------
+# The vector as bytes on the device
+# ---------------------------------------------------------------------------
+
+# a word's limbs mod P: P's low 64 bits, and its limbs 4-15 (limb 4 is not
+# zero, so the borrow of p + v for a negative int64 v stops there)
+_P_LO = P & (2**64 - 1)
+_P_HIGH = [(P >> (16 * k)) & fr.MASK for k in range(4, fr.N_LIMBS)]
+assert _P_HIGH[0] > 0
 
 
-def _column(arr) -> list[int]:
-    """A per-lane signal that is a field (16, B) in some groups and a flag
-    (B,) in others."""
-    return _ints(arr) if arr.dim() == 2 else _flags(arr)
+class _Layout:
+    """Where each value of the vector comes from: the source matrix of one
+    evaluation, (rows, 16) int16 limbs, and `index`, the row of each value
+    in `signal_names` order, so that the matrix's rows gathered by `index`
+    are section 2 of the `.wtns`, each row a value's 32 little-endian bytes.
+
+    The matrix's rows are the field tensors' values (a tensor's limb axis
+    moved last, its other axes flattened in order), then one row a word:
+    the flags and bits of the input and of the evaluation, and the constant
+    1, each written as its value mod P. `fields` and `words` list the
+    sources as (tree, path, limb axis, first row, end row) and (tree, path,
+    first word, end word), read from the trees of one evaluation: "packed"
+    (the packed input dict, section IN reduced mod P by the pack), "lanes"
+    and "out" (the debug graph's outputs) and "one". Built once for each
+    engine's parameters and device (`_layout`), from the section structure
+    below, with numpy over the sources, not over the values."""
+
+    def __init__(self, params, trees: dict, device: torch.device):
+        self.fields, self.words = [], []
+        self.field_rows = self.word_rows = 0
+        index = self._walk(params, trees)
+        # words after the fields: a word's id w (negative) is row -w - 1
+        index = np.where(index < 0, self.field_rows - index - 1, index)
+        self.values = len(index)
+        self.index = torch.from_numpy(index).to(device)
+
+    @staticmethod
+    def _get(trees, tree, path):
+        t = trees[tree]
+        for p in path:
+            t = t[p]
+        return t
+
+    def _field(self, trees, tree, *path, axis=0) -> np.ndarray:
+        """Register a field tensor; its rows' ids, shaped as its other
+        axes (the lane axis last)."""
+        shape = list(self._get(trees, tree, path).shape)
+        del shape[axis]
+        n = math.prod(shape)
+        lo = self.field_rows
+        self.fields.append((tree, path, axis, lo, lo + n))
+        self.field_rows += n
+        return np.arange(lo, lo + n, dtype=np.int64).reshape(shape)
+
+    def _word(self, trees, tree, *path) -> np.ndarray:
+        """Register a flag or bit tensor; its words' ids (negative), shaped
+        as it is."""
+        shape = self._get(trees, tree, path).shape
+        n = math.prod(shape)
+        lo = self.word_rows
+        self.words.append((tree, path, lo, lo + n))
+        self.word_rows += n
+        return -1 - np.arange(lo, lo + n, dtype=np.int64).reshape(shape)
+
+    def _lane(self, trees, tree, *path) -> np.ndarray:
+        """A per-lane signal, a field (16, B) or a flag (B,): (1, B) ids."""
+        t = self._get(trees, tree, path)
+        ids = self._field(trees, tree, *path) if t.dim() == 2 \
+            else self._word(trees, tree, *path)
+        return ids.reshape(1, -1)
+
+    def _walk(self, params, trees) -> np.ndarray:
+        def lane_major(rows):
+            """(m_k, B) id blocks, one a signal -> the lane-major order."""
+            return np.concatenate(rows).T.reshape(-1)
+
+        def field(*path, axis=0):
+            return self._field(trees, *path, axis=axis)
+
+        def lane(*path):
+            return self._lane(trees, *path)
+
+        parts = [self._word(trees, "one"),
+                 field("out", "hash_global_inputs").reshape(-1)]
+
+        # ---- section IN: the packed input dict ----
+        for k in ("oldLastIdx", "oldStateRoot", "globalChainID",
+                  "currentNumBatch", "feeIdxs", "feePlanTokens"):
+            parts.append(field("packed", _snake(k)).reshape(-1))
+        parts.append(self._word(trees, "packed", "im_on_chain"))
+        for k in ("imOutIdx", "imStateRoot", "imExitRoot"):
+            parts.append(field("packed", _snake(k)))
+        # (F, T - 1) -> lane i's F slots, lane by lane
+        parts.append(field("packed", "im_acc_fee_out", axis=1).T.reshape(-1))
+        for k in ("imStateRootFee", "imInitStateRootFee", "imFinalAccFee"):
+            parts.append(field("packed", _snake(k)).reshape(-1))
+        for inputs in (_TX_INPUTS, _FEE_INPUTS):
+            rows = []
+            for name, kind in inputs:
+                key = _snake(name)
+                if kind == "field":
+                    rows.append(field("packed", key).reshape(1, -1))
+                elif kind == "siblings":
+                    rows.append(field("packed", key, axis=1))
+                else:  # flag (B,), bits256 (256, T)
+                    rows.append(self._word(trees, "packed", key).reshape(
+                        -1, trees["packed"][key].shape[-1]))
+            parts.append(lane_major(rows))
+
+        # ---- section DEC ----
+        rows = [lane("lanes", "decode", k) for _, k in _DEC_SIGNALS]
+        rows += [self._word(trees, "lanes", "decode", k)
+                 for k in ("l1l2_tx_data", "l1_tx_full_data")]
+        parts.append(lane_major(rows))
+
+        # ---- section TX ----
+        rows = [lane("lanes", "tx", "balance", "load_amount")]
+        rows += [lane("lanes", "tx", "states", k) for _, k in _STATE_SIGNALS]
+        rows += [lane("lanes", "tx", "decode_ay"),
+                 lane("lanes", "tx", "decode_sign")]
+        for side in ("s1", "s2"):
+            rows += [lane("lanes", "tx", side, k) for k in _MUX_KEYS]
+        rows += [lane("lanes", "tx", k) for k in (
+            "old_state_hash1", "old_state_hash2", "sig_ay", "sig_sign",
+            "sig_ax")]
+        rows += [lane("lanes", "tx", "balance", k) for _, k in _BAL_SIGNALS]
+        rows.append(field("lanes", "acc_fee_out", axis=1))  # (F, T)
+        rows += [lane("lanes", "tx", k) for k in (
+            "new_nonce1", "new_state_hash1", "new_state_hash2",
+            "p1_enabled", "p1_new_root", "p2_enabled", "p2_new_root")]
+        rows += [lane("lanes", k) for k in (
+            "new_state_root", "new_exit_root", "is_amount_nullified")]
+        parts.append(lane_major(rows))
+
+        # ---- section FEE ----
+        parts.append(lane_major([lane("out", "fee", k) for k in (
+            "old_state_hash", "new_balance", "new_state_hash", "new_root")]))
+
+        # ---- section TAIL ----
+        for k in ("new_last_idx", "new_state_root", "new_exit_root"):
+            parts.append(field("out", k).reshape(-1))
+        parts.append(field("out", "acc_fee_out", axis=1).reshape(-1))
+        index = np.concatenate(parts)
+        assert len(index) == len(signal_names(*params))
+        return index
+
+    def section(self, trees: dict) -> torch.Tensor:
+        """Section 2 of one evaluation, on its device: every value's 32
+        little-endian bytes in `signal_names` order, (values * 32,)
+        uint8."""
+        dev = self.index.device
+        src = torch.empty(self.field_rows + self.word_rows, fr.N_LIMBS,
+                          dtype=torch.int16, device=dev)
+        # canonical limbs lie in [0, 2^16): the cast to int16 keeps their
+        # 16 bits, which read as uint16 are the value's bytes
+        for tree, path, axis, lo, hi in self.fields:
+            t = self._get(trees, tree, path).movedim(axis, -1)
+            src[lo:hi].view(t.shape).copy_(t)
+        words = torch.empty(self.word_rows, dtype=torch.int64, device=dev)
+        for tree, path, lo, hi in self.words:
+            t = self._get(trees, tree, path)
+            words[lo:hi].view(t.shape).copy_(t)
+        _words_mod_p(words, src[self.field_rows:])
+        return src.index_select(0, self.index).view(torch.uint8).view(-1)
+
+
+def _words_mod_p(words: torch.Tensor, rows: torch.Tensor) -> None:
+    """int64 words (n,) -> their values mod P as limbs into `rows` (n, 16):
+    v itself where v >= 0; else P + v, whose low 64 bits are d = P_lo + v
+    (two's complement, negative where the borrow reaches limb 4) and whose
+    limbs above are P's."""
+    dev = words.device
+    neg = words < 0
+    d = words + neg * _P_LO
+    rows[:, :4].copy_((d.unsqueeze(1) >> fr._col((0, 16, 32, 48), 1, dev))
+                      & fr.MASK)
+    high = neg.unsqueeze(1) * fr._col(_P_HIGH, 1, dev)
+    high[:, 0] -= (d < 0).long()
+    rows[:, 4:].copy_(high)
+
+
+# (params, device) -> its layout, made at the first evaluation read
+_LAYOUTS: dict[tuple, _Layout] = {}
+
+
+def _layout(engine, trees: dict) -> _Layout:
+    key = (engine.params, engine.device)
+    if key not in _LAYOUTS:
+        _LAYOUTS[key] = _Layout(engine.params, trees, engine.device)
+    return _LAYOUTS[key]
+
+
+def _trees(engine, packed: dict, lanes: dict, out: dict) -> dict:
+    """The trees of one evaluation that the layout reads."""
+    one = torch.ones(1, dtype=torch.int64, device=engine.device)
+    return dict(packed=packed, lanes=lanes, out=out, one=one)
 
 
 def _evaluate(engine, inp: dict):
     """One debug evaluation of the whole circuit through the engine's
-    captured `debug_call`: (lanes, outputs, ok), the verdict read back."""
+    captured `debug_call`, on the input packed once: (packed, lanes, out,
+    ok), the packed dict, the graph's outputs and the verdict read back."""
     with spans.span("export.evaluate"):
-        lanes, _lane_ok, out, ok = engine._full_debug(inp)
-        return lanes, out, bool(ok)
+        packed = engine.pack(inp)
+        lanes, _lane_ok, out, ok = engine.debug_call(packed)[:4]
+        return packed, lanes, out, bool(ok)
 
 
-def _vector(engine, inp: dict, lanes: dict, out: dict) -> list[int]:
-    """The canonical vector of one evaluation: every signal's value brought
-    to the host as a Python int, in `signal_names` order."""
+def _stage(engine, layout: _Layout):
+    """The page-locked buffer of the vector's bytes on the engine's card
+    (`witness.staging`, one a size); None on the CPU."""
+    if engine.device.type == "cpu":
+        return None
+    return staging(engine.device, 32 * layout.values)
+
+
+@contextmanager
+def _held(engine, packed: dict, lanes: dict, out: dict):
+    """Hold the buffer `_vector` copies into for the block, so that the
+    vector it returns stays as read until the block ends."""
+    stage = _stage(engine, _layout(engine, _trees(engine, packed, lanes,
+                                                  out)))
+    with stage.lock if stage else nullcontext():
+        yield
+
+
+class _Vector:
+    """The vector of one evaluation on the host as section 2 of its
+    `.wtns`: `body`, (values * 32,) uint8, each value's 32 little-endian
+    bytes, on a card the page-locked buffer (valid while `_held`). It reads
+    as the sequence of the values, an int made only where one is read; an
+    item set writes the value mod P."""
+
+    def __init__(self, body: np.ndarray):
+        self.body = body
+
+    def __len__(self) -> int:
+        return len(self.body) // 32
+
+    def _rows(self, k) -> np.ndarray:
+        return self.body.reshape(-1, 32)[k]
+
+    def __getitem__(self, k):
+        if isinstance(k, slice):
+            return limbs.read(np.ascontiguousarray(self._rows(k)))
+        return int.from_bytes(self._rows(k).tobytes(), "little")
+
+    def __setitem__(self, k: int, v: int) -> None:
+        self._rows(k)[:] = np.frombuffer(
+            fr.to_field(v).to_bytes(32, "little"), dtype=np.uint8)
+
+    def __iter__(self):
+        return iter(limbs.read(self.body))
+
+
+def _vector(engine, packed: dict, lanes: dict, out: dict) -> _Vector:
+    """The vector of one evaluation, gathered on the device as section 2's
+    bytes (`_Layout.section`) and, from a card, copied once into the
+    page-locked buffer of its size, which the caller holds (`_held`)."""
+    trees = _trees(engine, packed, lanes, out)
+    layout = _layout(engine, trees)
+    stage = _stage(engine, layout)
     with spans.span("export.read"):
-        values = _values(engine, inp, lanes, out)
-        spans.count("export_values", len(values))
-        return values
+        body = layout.section(trees)
+        if stage is None:
+            host = body.numpy()
+        else:
+            stage.copied.synchronize()
+            stage.host.copy_(body, non_blocking=True)
+            stage.copied.record(torch.cuda.current_stream(engine.device))
+            stage.copied.synchronize()
+            host = stage.host.numpy()
+        spans.count("export_values", layout.values)
+        spans.count("export_device_values", body.numel() // 32)
+    return _Vector(host)
 
 
 def export_witness(engine, inp: dict) -> tuple[list[str], list[int]]:
@@ -260,9 +523,12 @@ def export_witness(engine, inp: dict) -> tuple[list[str], list[int]]:
 
     Returns (names, values) in canonical order, whatever the verdict.
     `engine` is a RollupEngine; one debug evaluation computes every
-    signal."""
-    lanes, out, _ = _evaluate(engine, inp)
-    values = _vector(engine, inp, lanes, out)
+    signal, and the handoff's bytes are read back as ints, so every value
+    is in [0, P): an input given as v + p or as a negative int comes back
+    as v mod P (the JAX package returns section IN as given)."""
+    packed, lanes, out, _ = _evaluate(engine, inp)
+    with _held(engine, packed, lanes, out):
+        values = list(_vector(engine, packed, lanes, out))
     names = signal_names(*engine.params)
     assert len(names) == len(values), (len(names), len(values))
     return names, values
@@ -276,166 +542,53 @@ def handoff(engine, inp: dict, path: str | Path):
     reads nothing back and returns (None, False), as the reference's
     witness calculator stops at a constraint that does not hold. Otherwise
     the outputs are the public ones as `RollupEngine.run` keys them, read
-    from the vector written."""
+    from the bytes written."""
     with spans.span("export.handoff"):
-        lanes, out, ok = _evaluate(engine, inp)
+        packed, lanes, out, ok = _evaluate(engine, inp)
         if not ok:
             return None, False
-        values = _vector(engine, inp, lanes, out)
-        with spans.span("export.write"):
-            spans.count("wtns_bytes", write_wtns(path, values))
-        F = engine.params[3]
-        tail = len(values) - F - 3  # newLastIdx, the two roots, accFeeOut
-        return dict(hash_global_inputs=values[1],
-                    new_state_root=values[tail + 1],
-                    new_exit_root=values[tail + 2],
-                    new_last_idx=values[tail],
-                    acc_fee_out=values[tail + 3:]), True
-
-
-def _values(engine, inp: dict, lanes: dict, out: dict) -> list[int]:
-    n_tx, n_levels, max_l1_tx, max_fee_tx = engine.params
-    T, F, L = n_tx, max_fee_tx, n_levels + 1
-
-    def gi(key):  # input value list (per-lane camelCase key)
-        return [int(v) for v in inp[key]]
-
-    values: list[int] = [1]
-    values.append(fr.unpack_int(out["hash_global_inputs"]))
-
-    # ---- section IN: straight from the input dict ----
-    for k in ("oldLastIdx", "oldStateRoot", "globalChainID",
-              "currentNumBatch"):
-        values.append(int(inp[k]))
-    values += gi("feeIdxs")
-    values += gi("feePlanTokens")
-    values += gi("imOnChain")
-    values += gi("imOutIdx")
-    values += gi("imStateRoot")
-    values += gi("imExitRoot")
-    for i in range(T - 1):
-        values += [int(v) for v in inp["imAccFeeOut"][i]]
-    values += gi("imStateRootFee")
-    values.append(int(inp["imInitStateRootFee"]))
-    values += gi("imFinalAccFee")
-    for i in range(T):
-        for name, kind in _TX_INPUTS:
-            if kind == "bits256":
-                values += [int(b) for b in inp[name][i]]
-            elif kind == "siblings":
-                values += [int(s) for s in inp[name][i]]
-            else:
-                values.append(int(inp[name][i]) % P)
-    for j in range(F):
-        for name, kind in _FEE_INPUTS:
-            if kind == "siblings":
-                values += [int(s) for s in inp[name][j]]
-            else:
-                values.append(int(inp[name][j]))
-
-    # ---- section DEC ----
-    dec = lanes["decode"]
-    dec_cols = {s: _ints(dec[k]) if k not in ("to_bjj_sign",)
-                else _flags(dec[k]) for s, k in _DEC_SIGNALS}
-    # bit rows of one lane: the lane axis first, then plain Python ints
-    # (nl1l2, T) and (624, T) -> a row of bits a lane
-    l1l2 = fr.to_numpy(dec["l1l2_tx_data"].long()).T.tolist()
-    l1full = fr.to_numpy(dec["l1_tx_full_data"].long()).T.tolist()
-    for i in range(T):
-        values += [dec_cols[s][i] for s, _ in _DEC_SIGNALS]
-        values += l1l2[i]
-        values += l1full[i]
-
-    # ---- section TX ----
-    tx = lanes["tx"]
-    st = tx["states"]
-    bal = tx["balance"]
-    cols = {}
-    cols["decodeLoadAmount"] = _ints(bal["load_amount"])
-    for s, k in _STATE_SIGNALS:
-        cols[f"states.{s}"] = _column(st[k])
-    cols["decodeFromBjj.ay"] = _ints(tx["decode_ay"])
-    cols["decodeFromBjj.sign"] = _flags(tx["decode_sign"])
-    for side in ("s1", "s2"):
-        for s, k in zip(_MUX_SIGNALS, _MUX_KEYS):
-            cols[f"{side}.{s}"] = _column(tx[side][k])
-    for nm, k in (("oldStHash1", "old_state_hash1"),
-                  ("oldStHash2", "old_state_hash2"),
-                  ("sigAy", "sig_ay"), ("sigAx", "sig_ax"),
-                  ("newNonce1", "new_nonce1"),
-                  ("newStHash1", "new_state_hash1"),
-                  ("newStHash2", "new_state_hash2"),
-                  ("P1.newRoot", "p1_new_root"),
-                  ("P2.newRoot", "p2_new_root")):
-        cols[nm] = _ints(tx[k])
-    cols["sigSign"] = _flags(tx["sig_sign"])
-    cols["P1.enabled"] = _flags(tx["p1_enabled"])
-    cols["P2.enabled"] = _flags(tx["p2_enabled"])
-    for s, k in _BAL_SIGNALS:
-        cols[f"balance.{s}"] = _column(bal[k])
-    acc = fr.to_numpy(lanes["acc_fee_out"])  # (F, 16, T)
-    acc_cols = [_ints(acc[j]) for j in range(F)]
-    cols["newStateRoot"] = _ints(lanes["new_state_root"])
-    cols["newExitRoot"] = _ints(lanes["new_exit_root"])
-    cols["isAmountNullified"] = _flags(lanes["is_amount_nullified"])
-
-    for i in range(T):
-        values.append(cols["decodeLoadAmount"][i])
-        values += [cols[f"states.{s}"][i] for s, _ in _STATE_SIGNALS]
-        values += [cols["decodeFromBjj.ay"][i],
-                   cols["decodeFromBjj.sign"][i]]
-        values += [cols[f"s1.{s}"][i] for s in _MUX_SIGNALS]
-        values += [cols[f"s2.{s}"][i] for s in _MUX_SIGNALS]
-        values += [cols["oldStHash1"][i], cols["oldStHash2"][i]]
-        values += [cols["sigAy"][i], cols["sigSign"][i],
-                   cols["sigAx"][i]]
-        values += [cols[f"balance.{s}"][i] for s, _ in _BAL_SIGNALS]
-        values += [acc_cols[j][i] for j in range(F)]
-        values += [cols["newNonce1"][i], cols["newStHash1"][i],
-                   cols["newStHash2"][i]]
-        values += [cols["P1.enabled"][i], cols["P1.newRoot"][i],
-                   cols["P2.enabled"][i], cols["P2.newRoot"][i]]
-        values += [cols["newStateRoot"][i], cols["newExitRoot"][i],
-                   cols["isAmountNullified"][i]]
-
-    # ---- section FEE ----
-    fee = out["fee"]
-    f_old = _ints(fee["old_state_hash"])
-    f_bal = _ints(fee["new_balance"])
-    f_new = _ints(fee["new_state_hash"])
-    f_root = _ints(fee["new_root"])
-    for j in range(F):
-        values += [f_old[j], f_bal[j], f_new[j], f_root[j]]
-
-    # ---- section TAIL ----
-    values.append(fr.unpack_int(out["new_last_idx"]))
-    values.append(fr.unpack_int(out["new_state_root"]))
-    values.append(fr.unpack_int(out["new_exit_root"]))
-    values += _ints(out["acc_fee_out"].movedim(1, 0))  # (F, 16) -> (16, F)
-    return values
+        with _held(engine, packed, lanes, out):
+            values = _vector(engine, packed, lanes, out)
+            with spans.span("export.write"):
+                spans.count("wtns_bytes", write_wtns(path, values))
+            F = engine.params[3]
+            tail = values[-(F + 3):]
+            return dict(hash_global_inputs=values[1],
+                        new_state_root=tail[1], new_exit_root=tail[2],
+                        new_last_idx=tail[0], acc_fee_out=tail[3:]), True
 
 
 # ---------------------------------------------------------------------------
 # .wtns container (snarkjs binary witness format) + name sidecar
 # ---------------------------------------------------------------------------
 
-def write_wtns(path: str | Path, values: list[int]) -> int:
-    """snarkjs .wtns v2 container: the handoff format snarkjs's prover
-    reads (reference actions.js:139 writes the JSON twin). Returns the
-    bytes written."""
-    path = Path(path)
+def _write_section(path: str | Path, body) -> int:
+    """The snarkjs .wtns v2 container around `body`, section 2 as it is
+    written (32 little-endian bytes a value, below P): the header, then the
+    body from its own memory. Returns the bytes written."""
     n8 = 32
     sec1 = struct.pack("<I", n8) + P.to_bytes(32, "little") + \
-        struct.pack("<I", len(values))
+        struct.pack("<I", len(body) // n8)
+    head = b"wtns" + struct.pack("<II", 2, 2) + \
+        struct.pack("<IQ", 1, len(sec1)) + sec1 + \
+        struct.pack("<IQ", 2, len(body))
+    with Path(path).open("wb") as f:
+        f.write(head)
+        f.write(body)
+    return len(head) + len(body)
+
+
+def write_wtns(path: str | Path, values) -> int:
+    """snarkjs .wtns v2 container: the handoff format snarkjs's prover
+    reads (reference actions.js:139 writes the JSON twin). `values` is a
+    list of ints, or a `_Vector`, whose bytes are written as they lie.
+    Returns the bytes written."""
+    if isinstance(values, _Vector):
+        return _write_section(path, values.body)
     # each value as (v % P).to_bytes(32, "little"), by the pack's C routine
-    sec2 = bytearray(n8 * len(values))
+    sec2 = bytearray(32 * len(values))
     limbs.write(values, sec2, 0, False, fr.to_field)
-    with path.open("wb") as f:
-        f.write(b"wtns" + struct.pack("<II", 2, 2))
-        f.write(struct.pack("<IQ", 1, len(sec1)) + sec1)
-        f.write(struct.pack("<IQ", 2, len(sec2)))
-        f.write(sec2)
-    return 12 + 12 + len(sec1) + 12 + len(sec2)
+    return _write_section(path, sec2)
 
 
 def read_wtns(path: str | Path) -> list[int]:

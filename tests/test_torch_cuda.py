@@ -1,9 +1,10 @@
 """The CUDA kernels K1-K6 and AySign2Ax against their plain PyTorch
 versions on the card, the suite's batches through `RollupEngine` on `cuda`,
 withdrawals through `WithdrawEngine` on `cuda`, `trace` on `cuda` against
-`trace` on the CPU, the sharded path in a world of one over NCCL against
-`run_packed`, and the engines' captured CUDA graphs (`engine/aot.py`),
-the debug routes' among them, against their eager route and the builder.
+`trace` on the CPU, the handoff's file on `cuda` against the CPU's, the
+sharded path in a world of one over NCCL against `run_packed`, and the
+engines' captured CUDA graphs (`engine/aot.py`), the debug routes' among
+them, against their eager route and the builder.
 These tests need a CUDA device and skip without one. They import no JAX,
 so they also run on a machine that has none:
 
@@ -248,6 +249,39 @@ def test_trace_on_cuda_equals_trace_on_cpu(cuda):
     for name in want:
         assert got[name] == want[name], name
     assert got["lane_ok"] == [True] * SUITE_CONFIG[0]
+
+
+def test_handoff_on_cuda_writes_the_cpu_bytes_from_one_pinned_buffer(
+        cuda, tmp_path, monkeypatch):
+    """At the suite's shape the handoff on `cuda` (op by op, then captured)
+    writes the bytes and returns the outputs of the handoff on the CPU; its
+    two handoffs copy into one page-locked buffer of the vector's size, made
+    once."""
+    from circuits_tpu_torch.engine import witness, witness_vector
+
+    inp = suite_batches()["l2"].get_input()
+    want = witness_vector.handoff(RollupEngine(*SUITE_CONFIG, device="cpu"),
+                                  inp, tmp_path / "cpu.wtns")
+    assert want[1] is True
+    nbytes = 32 * len(witness_vector.signal_names(*SUITE_CONFIG))
+    key = (cuda.index, nbytes)
+    witness._STAGING.pop(key, None)
+    made = []
+
+    class Counted(witness._Staging):
+        def __init__(self, n):
+            made.append(n)
+            super().__init__(n)
+
+    monkeypatch.setattr(witness, "_Staging", Counted)
+    engine, stages = RollupEngine(*SUITE_CONFIG, device=cuda), []
+    for k in range(2):
+        path = tmp_path / f"cuda{k}.wtns"
+        assert witness_vector.handoff(engine, inp, path) == want
+        assert path.read_bytes() == (tmp_path / "cpu.wtns").read_bytes()
+        stages.append(witness._STAGING[key])
+    assert made.count(nbytes) == 1
+    assert stages[0] is stages[1] and stages[0].host.is_pinned()
 
 
 def test_world_of_one_over_nccl_equals_run_packed(cuda):

@@ -1,9 +1,11 @@
 """The prover's handoff (`witness_vector.handoff`) on the CPU at the suite's
 export shape (3, 16, 2, 2) and at RollupMain(4, 16, 2, 2): its file equals
-`write_wtns(export_witness(...))` byte for byte, a batch the circuit
-refuses writes nothing and returns (None, False), `export_witness` still
-gives the JAX package's vector (the refused batches too), and its spans
-and counters are recorded. Then the benchmark's own checker
+`write_wtns(export_witness(...))` and the JAX package's export written,
+byte for byte (also with section IN given as v + p, and with rqOffset
+set), a flag or bit of any int64 value is written mod p, a batch the
+circuit refuses writes nothing and returns (None, False), `export_witness`
+still gives the JAX package's vector (the refused batches too), and its
+spans and counters are recorded. Then the benchmark's own checker
 (`portbench/reference/witness_check.py`), which imports nothing of the
 port: the port's name list, and the port's `verify_witness` failure for
 failure on the port's vectors and on the four tampers of
@@ -14,12 +16,14 @@ import sys
 import time
 
 import pytest
+import torch
 
 from circuits_tpu.engine import witness_vector as jwv
 from circuits_tpu.engine.witness import RollupEngine as JaxEngine
 from circuits_tpu_torch import spans
 from circuits_tpu_torch.engine import witness_vector as wv
-from circuits_tpu_torch.engine.witness import RollupEngine
+from circuits_tpu_torch.engine.witness import RollupEngine, _rollup_tables
+from circuits_tpu_torch.field.scalar import P
 from circuits_tpu_torch.r1cs.witness_check import verify_witness
 
 from test_torch_witness_vector import TAMPERS
@@ -95,6 +99,64 @@ def test_handoff_file_is_export_written(handed, case, tmp_path):
         acc_fee_out=[w[f"main.accFeeOut[{j}]"] for j in range(F)])
 
 
+def _plus_p(inp: dict) -> dict:
+    """`inp` with every field value of section IN given as v + p (the
+    flags and bits, int64 words in the pack, as they are)."""
+    fields = {t.src for t in _rollup_tables(1, 1, 1, 1) if t.convert is None}
+
+    def up(v):
+        return [up(x) for x in v] if isinstance(v, list) else int(v) + P
+    return {k: up(v) if k in fields else v for k, v in inp.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_files(batches, jax_engines, tmp_path_factory):
+    """{case: the bytes of `write_wtns` of the JAX package's export of the
+    case's accepted batch}."""
+    d = tmp_path_factory.mktemp("jax")
+    out = {}
+    for case, (_, good, _) in batches.items():
+        jwv.write_wtns(d / f"{case}.wtns",
+                       jwv.export_witness(jax_engines[case], good)[1])
+        out[case] = (d / f"{case}.wtns").read_bytes()
+    return out
+
+
+@pytest.mark.parametrize("case,kind", [
+    ("suite", "accepted"), ("suite", "plus_p"),
+    ("rq", "rq_offset"), ("rq", "plus_p")])
+def test_handoff_bytes_equal_the_jax_export(handed, batches, jax_files,
+                                           case, kind, tmp_path):
+    """The handed-off file, gathered on the device from the debug graph and
+    the packed input, equals the JAX package's export written, byte for
+    byte: the accepted batch, the same with its section-IN values given as
+    v + p, and the rq batch, whose lane 2 has rqOffset 7."""
+    params, good, _ = batches[case]
+    h = handed[case]
+    if kind == "plus_p":
+        path = tmp_path / "plus_p.wtns"
+        got = wv.handoff(RollupEngine(*params, device="cpu"), _plus_p(good),
+                         path)
+        assert got == h["accepted"]
+    else:
+        path = h["dir"] / "accepted.wtns"
+    if kind == "rq_offset":
+        assert any(int(v) for v in good["rqOffset"])
+    assert path.read_bytes() == jax_files[case]
+
+
+@pytest.mark.parametrize("v", [0, 1, 7, 2**16 - 1, 2**16, 2**63 - 1, -1,
+                               -2**63, -wv._P_LO, -wv._P_LO - 1])
+def test_words_mod_p(v):
+    """A flag or bit word of any int64 value is written as v mod p, as
+    `write_wtns` writes it."""
+    rows = torch.empty(2, 16, dtype=torch.int16)
+    wv._words_mod_p(torch.tensor([v, 1]), rows)
+    raw = rows.numpy().tobytes()
+    assert raw[:32] == (v % P).to_bytes(32, "little")
+    assert raw[32:] == (1).to_bytes(32, "little")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_refused_batch_hands_off_nothing(handed, case):
     h = handed[case]
@@ -103,12 +165,20 @@ def test_refused_batch_hands_off_nothing(handed, case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("kind", ["accepted", "refused"])
+@pytest.mark.parametrize("kind", ["accepted", "refused", "plus_p"])
 def test_export_witness_unchanged(handed, batches, jax_engines, case,
                                   kind):
     """`export_witness` exports whatever the verdict, the JAX package's
-    names and values."""
-    _, good, bad = batches[case]
+    names and values; with section IN given as v + p, the JAX package's
+    values mod P (it returns that section as given)."""
+    params, good, bad = batches[case]
+    if kind == "plus_p":
+        names, values = jwv.export_witness(jax_engines[case], _plus_p(good))
+        got = wv.export_witness(RollupEngine(*params, device="cpu"),
+                                _plus_p(good))
+        assert got == (names, [v % P for v in values])
+        assert any(v >= P for v in values)
+        return
     inp = good if kind == "accepted" else bad
     assert handed[case][kind + "_export"] == \
         jwv.export_witness(jax_engines[case], inp)
@@ -134,8 +204,9 @@ def test_spans_and_counters(handed, case):
     assert pack["parent"] == by["export.evaluate"][0]["seq"]
     size = os.path.getsize(h["dir"] / "accepted.wtns")
     assert by["export.write"][0]["counters"] == {"wtns_bytes": size}
+    n = len(wv.signal_names(*h["params"]))
     assert by["export.read"][0]["counters"] == {
-        "export_values": len(wv.signal_names(*h["params"]))}
+        "export_values": n, "export_device_values": n}
     refused = {r["name"] for r in h["refused_records"]}
     assert {"export.handoff", "export.evaluate"} <= refused
     assert not refused & {"export.read", "export.write"}
